@@ -13,16 +13,24 @@ plain PyTorch versions stand in.
 from . import constants
 from .config import DspConfig
 from .crc import crc24, parity
-from .dsp.pipeline import DetectionTable, pack_table, unpack_table
+from .dsp.pipeline import (DetectionTable, demod_batch, demod_batch_packed,
+                           demod_block, demod_block_packed,
+                           iq_to_device_layout, pack_table, unpack_table)
 from .io.native_stream import run_native_pipelined
-from .kernels.preamble import (demod_batch_packed_planar, demod_batch_planar,
-                               planar_length, to_planar_i8)
+from .io.stream import run_channels, run_pipelined
+from .kernels.preamble import (demod_batch_packed_fast,
+                               demod_batch_packed_planar, demod_batch_planar,
+                               demod_block_packed_fast, planar_length,
+                               supported_2d_tile, to_planar_i8)
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "DetectionTable", "DspConfig", "constants", "crc24",
-    "demod_batch_packed_planar", "demod_batch_planar", "pack_table",
-    "parity", "planar_length", "run_native_pipelined", "to_planar_i8",
-    "unpack_table",
+    "DetectionTable", "DspConfig", "constants", "crc24", "demod_batch",
+    "demod_batch_packed", "demod_batch_packed_fast",
+    "demod_batch_packed_planar", "demod_batch_planar", "demod_block",
+    "demod_block_packed", "demod_block_packed_fast", "iq_to_device_layout",
+    "pack_table", "parity", "planar_length", "run_channels",
+    "run_native_pipelined", "run_pipelined", "supported_2d_tile",
+    "to_planar_i8", "unpack_table",
 ]

@@ -1,15 +1,29 @@
-"""Decode tail of the demod pipeline, in PyTorch.
+"""The demod pipeline's XLA stages and decode tail, in PyTorch.
 
-The counterpart of `airmodes/dsp/pipeline.py`'s table stages: CRC-24 check
-and low-confidence ECC (`crc_check_and_correct`), the masking of empty
-table rows (`finalize_table`), and the packed `(K+1, 9)` int32 transfer
-format (`pack_table` on the device, `unpack_table` in numpy on the host).
+The counterpart of `airmodes/dsp/pipeline.py`:
+
+- the full-block detect path the reference leaves to XLA (`demod_block`):
+  `magnitude_squared`, the trailing `noise_floor`, `chip_energy`,
+  `preamble_detect` at every owned sample, `compact_detections` into the
+  first K hits, `slice_bits`. No hand kernel is involved; the streaming
+  runner takes this path where the f32 detect kernels' gate
+  (`kernels.preamble.supported_2d_tile`) refuses the config;
+- the decode tail every path shares: CRC-24 check and low-confidence ECC
+  (`crc_check_and_correct`), the masking of empty table rows
+  (`finalize_table`), and the packed `(K+1, 9)` int32 transfer format
+  (`pack_table` on the device, `unpack_table` in numpy on the host).
 
 Every function takes tensors with any leading batch shape, e.g. `(K, 112)`
 bits for one block or `(C, K, 112)` for a batch of C blocks, and runs on
 whatever device its inputs live on. The reference's onehot matmuls (TPU
-gather workarounds) become gathers and integer XOR folds here: the
+gather workarounds) become gathers, sorts and integer XOR folds here: the
 syndrome is exact integer arithmetic, never a float product.
+
+Numerics: XLA on the CPU contracts `xi*xi + xq*xq` into fma(xi, xi, xq*xq)
+and, at sps > 1, the chip-energy scales into the preamble's pulse sum; the
+port writes the same FMAs (`fma_f32`). The noise floor's
+mean and cumsum reduce in another order than XLA's, so `noise` agrees to
+~1e-6 relative, not bit for bit.
 """
 
 from __future__ import annotations
@@ -23,6 +37,11 @@ import torch
 from .. import crc
 from ..config import DspConfig
 from ..constants import (
+    CHIPS_PER_BIT,
+    MAX_FRAME_BITS,
+    PREAMBLE_CHIPS,
+    PREAMBLE_PULSE_CHIPS,
+    PREAMBLE_QUIET_CHIPS,
     STATUS_ADDR,
     STATUS_CORRECTED_1,
     STATUS_CORRECTED_2,
@@ -45,6 +64,302 @@ class DetectionTable(NamedTuple):
     noise: torch.Tensor      # (*B, K) float32 — noise floor at detection
     n_detected: torch.Tensor  # (*B,) int32 — preamble hits in the owned region
     n_overflow: torch.Tensor  # (*B,) int32 — hits dropped because K was exceeded
+
+
+# --- f32 arithmetic the reference's compiled programs carry ------------------
+
+def _f32(x: float) -> float:
+    """x rounded to float32, as a Python float (exact in double)."""
+    return float(np.float32(x))
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. "cuda" without a card raises:
+    nothing moves to the CPU unless the caller asks for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU")
+    return dev
+
+
+def _f64(x):
+    return x.to(torch.float64) if isinstance(x, torch.Tensor) else float(x)
+
+
+def fma_f32(a, b, c) -> torch.Tensor:
+    """Correctly rounded f32 fma(a, b, c) of f32 tensors (or f32 values
+    given as Python floats; at least one argument a tensor), as __fmaf_rn
+    computes it and as XLA on the CPU contracts a*b + c.
+
+    The product of two f32 values is exact in float64, the sum is not:
+    rounding it to float64 and then to f32 can round twice. TwoSum gives
+    the float64 sum's exact error; where the float64 sum lies exactly on
+    an f32 tie, that error decides the direction, which is what a single
+    rounding of the exact value would do. Elsewhere the float64 sum
+    rounds to the same f32 as the exact value."""
+    p = _f64(a) * _f64(b)                               # exact
+    c64 = _f64(c)
+    s = p + c64
+    bp = s - p
+    err = (p - (s - bp)) + (c64 - bp)                   # s + err == p + c
+    r = s.to(torch.float32)
+    off = s - r.to(torch.float64)                       # exact
+    toward = torch.where(off > 0, torch.inf, -torch.inf).to(torch.float32)
+    other = torch.nextafter(r, toward)
+    tie = (off != 0) & (other.to(torch.float64) - s == off)
+    return torch.where(tie & (err * off > 0), other, r)
+
+
+def power_f32(xi: torch.Tensor, xq: torch.Tensor) -> torch.Tensor:
+    """f32 power fma(xi, xi, xq*xq) of unit-scale f32 I/Q."""
+    return fma_f32(xi, xi, xq * xq)
+
+
+def chip_sums(m: torch.Tensor, sps: int) -> torch.Tensor:
+    """acc[x] = ((m[x] + m[x+1]) + ...) + m[x+sps-1] along the last axis
+    (length shrinks by sps - 1); the chip energy is acc * f32(1/sps)."""
+    length = m.shape[-1] - (sps - 1)
+    acc = m[..., :length]
+    for s in range(1, sps):
+        acc = acc + m[..., s:s + length]
+    return acc
+
+
+def ref_chain(acc, sps: int):
+    """Reference level of the decode tails and the XLA detect path from the
+    four pulses' chip sums acc = (S0, S1, S2, S3): at sps > 1 XLA on the
+    CPU contracts every chip-energy scale but pulse 1's into the pulse sum,
+    fma(S3, s, fma(S2, s, fma(S0, s, S1*s))) * 0.25."""
+    a0, a1, a2, a3 = acc
+    if sps == 1:
+        return (((a0 + a1) + a2) + a3) * 0.25
+    s = _f32(1.0 / sps)
+    r = fma_f32(a0, s, a1 * s)
+    r = fma_f32(a2, s, r)
+    return fma_f32(a3, s, r) * 0.25
+
+
+# --- the XLA detect path -----------------------------------------------------
+
+def iq_to_device_layout(iq):
+    """Host-side: complex64 (..., N) -> float32 (..., N, 2) zero-copy view;
+    other arrays pass through."""
+    arr = np.ascontiguousarray(iq)
+    if arr.dtype == np.complex64:
+        return arr.view(np.float32).reshape(*arr.shape, 2)
+    return arr
+
+
+def magnitude_squared(iq: torch.Tensor) -> torch.Tensor:
+    """|IQ|^2 as the reference computes it, fma(i, i, q*q) in f32, of
+    complex64 or (..., 2) I/Q; int8 and int16 wire samples are scaled by
+    exactly 1/127 and 1/32767 first."""
+    if iq.is_complex():
+        iq = torch.view_as_real(iq.to(torch.complex64))
+    if iq.shape[-1] != 2:
+        raise ValueError("expected (..., 2) (I, Q) layout")
+    if iq.dtype == torch.uint8:
+        # raw rtl-sdr bytes are offset-binary: squaring them wraps into
+        # valid-shaped garbage
+        raise TypeError(
+            "magnitude_squared: uint8 (raw uc8 bytes) unsupported — "
+            "convert offset-127 unsigned to centered int8/float32 first")
+    if iq.dtype in (torch.int8, torch.int16):
+        scale = 1.0 / 127.0 if iq.dtype == torch.int8 else 1.0 / 32767.0
+        iq = iq.to(torch.float32) * _f32(scale)
+    iq = iq.to(torch.float32)
+    return power_f32(iq[..., 0], iq[..., 1])
+
+
+def noise_floor(mag2: torch.Tensor, window: int) -> torch.Tensor:
+    """Trailing moving average: noise[i] = mean(mag2[i-window:i]) along
+    the last axis; the first `window` samples reuse the first full
+    window's value. The reference's mean-centered cumsum difference: the
+    centering keeps the f32 running sum near zero."""
+    mu = mag2.mean(dim=-1, keepdim=True)
+    cs = torch.cumsum(mag2 - mu, dim=-1)
+    cspad = torch.nn.functional.pad(cs, (1, 0))
+    sums = cspad[..., window:] - cspad[..., :-window] + window * mu
+    avg = sums * (1.0 / window)
+    pad = avg[..., :1].expand(*avg.shape[:-1], window)
+    return torch.cat([pad, avg[..., :-1]], dim=-1)
+
+
+def chip_energy(mag2: torch.Tensor, sps: int) -> torch.Tensor:
+    """ce[i] = mean(mag2[i : i+sps]) along the last axis, cyclic at the end
+    as the reference's roll; the identity at sps == 1."""
+    if sps == 1:
+        return mag2
+    acc = mag2
+    for s in range(1, sps):
+        acc = acc + torch.roll(mag2, -s, dims=-1)
+    return acc * _f32(1.0 / sps)
+
+
+def preamble_detect(mag2: torch.Tensor, noise: torch.Tensor, cfg: DspConfig,
+                    left: int, n_owned: int):
+    """The 4-pulse + quiet-chip preamble test at every owned sample,
+    extended nms_chips into both halos, then non-max suppression (ties
+    break toward the earliest sample). Returns (mask bool, ref_level f32)
+    over the owned region, leading dims kept."""
+    sps = cfg.sps
+    acc = chip_sums(mag2, sps) if sps > 1 else mag2
+    m = acc * _f32(1.0 / sps) if sps > 1 else mag2
+    half = cfg.nms_chips * sps
+    base = left - half
+    n_ext = n_owned + 2 * half
+
+    def sl(x, shift):
+        return x[..., base + shift: base + shift + n_ext]
+
+    pulses = [sl(m, c * sps) for c in PREAMBLE_PULSE_CHIPS]
+    ref = ref_chain([sl(acc, c * sps) for c in PREAMBLE_PULSE_CHIPS], sps)
+    nf = sl(noise, 0)
+    thresh = _f32(cfg.threshold)
+    ok = (pulses[0] >= sl(m, -1)) & (pulses[0] > sl(m, 1))
+    ptol = _f32(cfg.pulse_tolerance)
+    for p in pulses:
+        ok &= (p > nf * thresh) & (p > ref * ptol)
+    qtol = _f32(cfg.quiet_tolerance)
+    for q in PREAMBLE_QUIET_CHIPS:
+        ok &= sl(m, q * sps) < ref * qtol
+
+    score = torch.where(ok, ref, 0.0)
+    owned = score[..., half: half + n_owned]
+    left_max = torch.full_like(owned, -torch.inf)
+    right_max = torch.full_like(owned, -torch.inf)
+    for d in range(1, half + 1):
+        left_max = torch.maximum(left_max,
+                                 score[..., half - d: half - d + n_owned])
+        right_max = torch.maximum(right_max,
+                                  score[..., half + d: half + d + n_owned])
+    ok = ok[..., half: half + n_owned] & (owned > left_max) \
+        & (owned >= right_max)
+    return ok, ref[..., half: half + n_owned]
+
+
+def compact_detections(mask: torch.Tensor, max_detections: int,
+                       group: int = 1024, per_group: int = 16):
+    """(..., N) bool mask -> the first-K indices (ascending, -1 past the
+    valid ones), valid mask, hit count and overflow, with the reference's
+    spill rule: when N allows it, each `group`-sample group keeps only its
+    `per_group` earliest hits, and the rest count as overflow. The
+    reference selects with top_k and onehot matmuls (TPU workarounds);
+    a sort of the hit indices gives the same result."""
+    n = mask.shape[-1]
+    K = max_detections
+    dev = mask.device
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    n_det = mask.sum(dim=-1, dtype=torch.int32)
+    grouped = not (n % group != 0 or n < 4 * group
+                   or (n // group) * per_group < K)
+    if grouped:
+        g = mask.reshape(*mask.shape[:-1], n // group, group)
+        rank = torch.cumsum(g.to(torch.int32), dim=-1)
+        kept = (g & (rank <= per_group)).reshape(mask.shape)
+    else:
+        kept = mask
+    big = n
+    key = torch.where(kept, idx, big)
+    if n < K:
+        key = torch.nn.functional.pad(key, (0, K - n), value=big)
+    first = torch.topk(key, K, dim=-1, largest=False, sorted=True).values
+    valid = first < big
+    det_idx = torch.where(valid, first, -1).to(torch.int32)
+    n_valid = valid.sum(dim=-1, dtype=torch.int32)
+    if grouped:
+        overflow = n_det - n_valid
+    else:
+        overflow = torch.clamp(n_det - K, min=0)
+    return det_idx, valid, n_det, overflow
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[..., idx] per leading index: x (*B, N), idx (*B, *S) int."""
+    lead = x.shape[:-1]
+    flat = idx.reshape(*lead, -1).to(torch.int64)
+    return torch.gather(x, -1, flat).reshape(idx.shape)
+
+
+def slice_bits(mag2, det_idx, valid, ref_level, cfg: DspConfig, left: int):
+    """224 data chips per detection; PPM compare -> bits + confidence."""
+    sps = cfg.sps
+    n_chips = MAX_FRAME_BITS * CHIPS_PER_BIT
+    dev = mag2.device
+    base = left + torch.where(valid, det_idx, 0).to(torch.int64) \
+        + PREAMBLE_CHIPS * sps
+    chip_offsets = torch.arange(n_chips, dtype=torch.int64, device=dev) * sps
+    if sps == 1:
+        energies = _take(mag2, base[..., None] + chip_offsets)
+    else:
+        sub = torch.arange(sps, dtype=torch.int64, device=dev)
+        gathered = _take(mag2, base[..., None, None]
+                         + chip_offsets[:, None] + sub)
+        acc = gathered[..., 0]
+        for s in range(1, sps):
+            acc = acc + gathered[..., s]
+        energies = acc * _f32(1.0 / sps)
+    e0 = energies[..., 0::2]
+    e1 = energies[..., 1::2]
+    bits = e0 > e1
+    level = ref_level[..., None] * _f32(cfg.confidence_level)
+    confidence = (e0 > level) ^ (e1 > level)
+    return bits, confidence
+
+
+def demod_block(iq: torch.Tensor, cfg: DspConfig) -> DetectionTable:
+    """The XLA path on the input's device: (..., L+N+R, 2) I/Q (f32, int8
+    or int16) or (..., L+N+R) complex64 -> DetectionTable with the same
+    leading dims. A short input raises: the framers always pad to the
+    full frame, and a short one would decode misaligned."""
+    left, n = cfg.left_halo, cfg.block_size
+    need = left + n + cfg.right_halo
+    length = iq.shape[-1] if iq.is_complex() else iq.shape[-2]
+    if length < need:
+        raise ValueError(
+            f"block length {length} < left+block+right {need}: "
+            "frame with io.sources (zero-padded halos)")
+    mag2 = magnitude_squared(iq)
+    noise = noise_floor(mag2, cfg.noise_window)
+    mask, ref = preamble_detect(mag2, noise, cfg, left, n)
+    det_idx, valid, n_det, overflow = compact_detections(
+        mask, cfg.max_detections)
+    safe_idx = torch.where(valid, det_idx, 0)
+    ref_level = _take(ref, safe_idx)
+    noise_at = _take(noise, left + safe_idx)
+    bits, confidence = slice_bits(mag2, det_idx, valid, ref_level, cfg, left)
+    out_bits, df, nbits, synd, status = crc_check_and_correct(
+        bits, confidence, cfg)
+    return finalize_table(valid, det_idx, out_bits, df, nbits, synd, status,
+                          ref_level, noise_at, n_det, overflow)
+
+
+def _to_device(x, dev: torch.device) -> torch.Tensor:
+    """A host array (numpy; complex64 is viewed as (..., 2) f32) or a
+    tensor, on `dev`; host memory goes over without blocking."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.ascontiguousarray(iq_to_device_layout(x)))
+    return x.to(dev, non_blocking=True)
+
+
+def demod_block_packed(iq, cfg: DspConfig, device="cuda") -> torch.Tensor:
+    """demod_block + pack_table: one block -> (K+1, 9) int32 on `device`.
+    Runs on the card unless the caller asks for the CPU."""
+    return pack_table(demod_block(_to_device(iq, resolve_device(device)),
+                                  cfg))
+
+
+def demod_batch(iq, cfg: DspConfig, device="cuda") -> DetectionTable:
+    """demod_block over a leading channel axis: (C, L+N+R, 2) -> a
+    DetectionTable with leading C, on `device`."""
+    return demod_block(_to_device(iq, resolve_device(device)), cfg)
+
+
+def demod_batch_packed(iq, cfg: DspConfig, device="cuda") -> torch.Tensor:
+    """demod_batch + pack_table: (C, L+N+R, 2) -> (C, K+1, 9) int32."""
+    return pack_table(demod_batch(iq, cfg, device=device))
 
 
 @functools.lru_cache(maxsize=None)

@@ -31,9 +31,9 @@ import torch
 
 from ..config import DspConfig
 from ..dsp import host as host_mod
-from ..dsp.pipeline import unpack_table
+from ..dsp.pipeline import resolve_device, unpack_table
 from ..kernels.preamble import (demod_batch_packed_planar, planar_length,
-                                resolve_device, supported_planar_tile)
+                                supported_planar_tile)
 
 
 def _planar_step(cfg: DspConfig, device):

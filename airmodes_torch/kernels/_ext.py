@@ -1,11 +1,12 @@
 """Build and bind the port's CUDA kernels.
 
-Each `csrc/<name>.cu` file has a plain C interface. At first use it is
-compiled with `nvcc` for Hopper (`sm_90a`) into its own shared library under
-`kernels/build/` (git-ignored), named by a hash of its source and flags so
-that an edited source is rebuilt, and loaded with `ctypes`. `build_all()`
-starts one `nvcc` per source at once, so a fresh checkout pays for the
-slowest build, not for the sum.
+Each `csrc/<name>.cu` file has a plain C interface (the `.cuh` headers
+beside them hold device code they share). At first use it is compiled with
+`nvcc` for Hopper (`sm_90a`) into its own shared library under
+`kernels/build/` (git-ignored), named by a hash of its source, the headers
+and the flags so that an edited source is rebuilt, and loaded with
+`ctypes`. `build_all()` starts one `nvcc` per source at once, so a fresh
+checkout pays for the slowest build, not for the sum.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no CUDA toolkit.
@@ -44,6 +45,10 @@ SIGNATURES = {
         "slice_windows_launch": [_vp, _vp, _vp, _vp, _i, _ll, _i, _i, _f,
                                  _vp],
     },
+    "detect_mask": {
+        "detect_mask_launch": [_vp, _vp, _vp, _i, _ll, _ll, _ll, _i, _i, _i,
+                               _i, _f, _f, _f, _f, _vp],
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -61,9 +66,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    src = os.path.join(_CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of its source, the shared
+    headers beside it and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for f in [f"{name}.cu", *headers]:
+        with open(os.path.join(_CSRC, f), "rb") as fh:
+            h.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 

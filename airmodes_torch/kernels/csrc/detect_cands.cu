@@ -11,7 +11,8 @@
 //            ws <- ws[y] + ws[y+s], s = 1, 2, ..., 64
 //   ce[x]  = ((m[x] + m[x+1]) + ... + m[x+sps-1]) * (1/sps)  (sps > 1)
 //   the 4-pulse + quiet-chip preamble test against nf = ws[x-128]/128,
-//   then non-max suppression over +-nms_chips*sps samples.
+//   then non-max suppression over +-nms_chips*sps samples
+// (the rule's body, shared with B3/B4, is detect_body.cuh).
 // Output, per (channel, tile): the first 4 hits of each of the 128 lane
 // columns (hit d in tile row r, lane l encodes as r*128 + l; sentinel
 // trows*128) in rows 0..3, per-lane hit counts in row 4, zeros in 5..7 —
@@ -22,8 +23,10 @@
 // order, with explicit round-to-nearest intrinsics. The power is a fused
 // multiply-add, fma(xi, xi, xq*xq): that is what the JAX reference computes
 // (XLA contracts xi*xi + xq*xq), and the plain PyTorch version reproduces it
-// exactly. The file is also built with --fmad=false so that no other
-// product is contracted. The reference may take the window sum as two
+// exactly. So is the reference level at sps > 1, where XLA contracts pulse
+// 0's chip-energy scale into the pulse sum (detect_body.cuh: ref_at). The
+// file is also built with --fmad=false so that no other product is
+// contracted. The reference may take the window sum as two
 // matmuls (mxu_window_sum); this kernel always takes the doubling fold.
 //
 // What bounds it on this card: it reads 2 bytes per sample and writes
@@ -42,13 +45,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "detect_body.cuh"
+
 namespace {
 
-constexpr int kLanes = 128;
-constexpr int kChunkRows = 32;
-constexpr int kChunk = kChunkRows * kLanes;  // owned samples per CTA
-constexpr int kLookback = 256;               // staged samples before the chunk
-constexpr int kThreads = 256;
+using detect::kChunk;
+using detect::kChunkRows;
+using detect::kLanes;
+using detect::kThreads;
 constexpr int kCandRows = 8;
 constexpr int kCountRow = 4;
 constexpr int kChunkRowsOut = 5;             // 4 hit rows + count row
@@ -63,27 +67,15 @@ struct Params {
   int tiles;           // tiles per channel
   int nchunk;          // chunks per tile
   int per_lane;        // hits kept per (tile, lane), <= 4
-  int sps;
-  int half;            // NMS half-window, samples
-  int rhalo;           // staged samples after the chunk
   float scale;         // 1/127
-  float thresh;        // linear detection threshold
-  float ptol;          // pulse tolerance
-  float qtol;          // quiet tolerance
-  float inv_sps;       // 1/sps
+  detect::Rule rule;
 };
 
 __global__ void __launch_bounds__(kThreads)
 detect_chunk_kernel(Params p) {
   extern __shared__ float smem[];
-  const int len = kLookback + kChunk + p.rhalo;  // staged power samples
-  const int nt = kChunk + 2 * p.half;            // test positions
-  float* sm = smem;                              // m
-  float* sa = sm + len;                          // fold ping
-  float* sb = sa + len;                          // fold pong, then ce
-  float* score = sb + len;                       // (nt)
-  uint8_t* okf = reinterpret_cast<uint8_t*>(score + nt);  // (nt)
-  uint8_t* keep = okf + nt;                      // (kChunk)
+  const detect::Smem s = detect::carve(smem, p.rule);
+  const int len = detect::staged_len(p.rule);
 
   const int blk = blockIdx.x;                    // (c, t, k) flattened
   const int k = blk % p.nchunk;
@@ -104,84 +96,10 @@ detect_chunk_kernel(Params p) {
       const float fq = __fmul_rn((float)xq[x], p.scale);
       v = __fmaf_rn(fi, fi, __fmul_rn(fq, fq));
     }
-    sm[u] = v;
+    s.m[u] = v;
   }
   __syncthreads();
-
-  // trailing window sum by log-doubling: 7 passes, ping-pong sm->sa->sb...
-  {
-    const float* src = sm;
-    float* dst = sa;
-    int n = len;
-    for (int s = 1; s <= 64; s *= 2) {
-      n -= s;
-      for (int y = threadIdx.x; y < n; y += kThreads)
-        dst[y] = __fadd_rn(src[y], src[y + s]);
-      __syncthreads();
-      src = dst;
-      dst = (dst == sa) ? sb : sa;
-    }
-    // 7 passes end in sa
-  }
-  const float* ws = sa;
-
-  const float* ce = sm;
-  if (p.sps > 1) {
-    const int nce = len - p.sps + 1;
-    for (int v = threadIdx.x; v < nce; v += kThreads) {
-      float acc = sm[v];
-      for (int s = 1; s < p.sps; ++s) acc = __fadd_rn(acc, sm[v + s]);
-      sb[v] = __fmul_rn(acc, p.inv_sps);
-    }
-    __syncthreads();
-    ce = sb;
-  }
-
-  // preamble tests at test positions u = 256 - half + i, i in [0, nt)
-  const int sps = p.sps;
-  for (int i = threadIdx.x; i < nt; i += kThreads) {
-    const int u = kLookback - p.half + i;
-    const float p0 = ce[u];
-    const float p1 = ce[u + 2 * sps];
-    const float p2 = ce[u + 7 * sps];
-    const float p3 = ce[u + 9 * sps];
-    const float ref =
-        __fmul_rn(__fadd_rn(__fadd_rn(__fadd_rn(p0, p1), p2), p3), 0.25f);
-    const float nf = __fmul_rn(ws[u - 128], 0.0078125f);
-    bool ok = (p0 >= ce[u - 1]) && (p0 > ce[u + 1]);
-    const float pmin = fminf(fminf(p0, p1), fminf(p2, p3));
-    ok = ok && (pmin > fmaxf(__fmul_rn(nf, p.thresh), __fmul_rn(ref, p.ptol)));
-    float quiet = ce[u + 1 * sps];
-    quiet = fmaxf(quiet, ce[u + 3 * sps]);
-    quiet = fmaxf(quiet, ce[u + 4 * sps]);
-    quiet = fmaxf(quiet, ce[u + 5 * sps]);
-    quiet = fmaxf(quiet, ce[u + 6 * sps]);
-    quiet = fmaxf(quiet, ce[u + 8 * sps]);
-    quiet = fmaxf(quiet, ce[u + 10 * sps]);
-    quiet = fmaxf(quiet, ce[u + 11 * sps]);
-    quiet = fmaxf(quiet, ce[u + 12 * sps]);
-    quiet = fmaxf(quiet, ce[u + 13 * sps]);
-    quiet = fmaxf(quiet, ce[u + 14 * sps]);
-    quiet = fmaxf(quiet, ce[u + 15 * sps]);
-    ok = ok && (quiet < __fmul_rn(ref, p.qtol));
-    score[i] = ok ? ref : 0.f;
-    okf[i] = ok ? 1 : 0;
-  }
-  __syncthreads();
-
-  // NMS: strictly above every score in the half samples before, at least
-  // every score in the half samples after
-  for (int s = threadIdx.x; s < kChunk; s += kThreads) {
-    const int i = p.half + s;
-    float left = 0.f, right = 0.f;
-    for (int o = 1; o <= p.half; ++o) {
-      left = fmaxf(left, score[i - o]);
-      right = fmaxf(right, score[i + o]);
-    }
-    const float own = score[i];
-    keep[s] = (okf[i] && own > left && own >= right) ? 1 : 0;
-  }
-  __syncthreads();
+  detect::detect_chunk(s, p.rule);
 
   // per-lane first 4 hits of this chunk, encoded in tile coordinates
   if (threadIdx.x < kLanes) {
@@ -190,7 +108,7 @@ detect_chunk_kernel(Params p) {
     int hits[4] = {sent, sent, sent, sent};
     int n = 0;
     for (int r = 0; r < kChunkRows; ++r) {
-      if (keep[r * kLanes + lane]) {
+      if (s.keep[r * kLanes + lane]) {
         if (n < 4) hits[n] = (k * kChunkRows + r) * kLanes + lane;
         ++n;
       }
@@ -227,14 +145,6 @@ merge_chunks_kernel(Params p) {
   for (int j = kCountRow + 1; j < kCandRows; ++j) out[j * kLanes + lane] = 0;
 }
 
-// Shared memory one chunk CTA needs for the given geometry (bytes): the
-// layout at the top of detect_chunk_kernel.
-int smem_bytes(int half, int rhalo) {
-  const int len = kLookback + kChunk + rhalo;
-  const int nt = kChunk + 2 * half;
-  return (3 * len + nt) * (int)sizeof(float) + nt + kChunk;
-}
-
 }  // namespace
 
 extern "C" {
@@ -256,15 +166,9 @@ int detect_cands_launch(const void* xi, const void* xq, void* chunk_out,
   p.tiles = tiles;
   p.nchunk = nchunk;
   p.per_lane = per_lane;
-  p.sps = sps;
-  p.half = half;
-  p.rhalo = rhalo;
   p.scale = scale;
-  p.thresh = thresh;
-  p.ptol = ptol;
-  p.qtol = qtol;
-  p.inv_sps = inv_sps;
-  const int smem = smem_bytes(half, rhalo);
+  p.rule = detect::Rule{sps, half, rhalo, thresh, ptol, qtol, inv_sps};
+  const int smem = detect::smem_bytes(p.rule);
   cudaError_t err = cudaFuncSetAttribute(
       detect_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;

@@ -1,10 +1,13 @@
-"""Planar int8 demod path: kernels B1 (detect) and B2 (slice) and the torch
-code between and after them.
+"""The demod paths with hand kernels: the planar int8 path (kernels B1, B2)
+and the f32 fast path (kernels B3, B4), with the torch code between and
+after them.
 
-The counterpart of the planar half of `airmodes/kernels/preamble_pallas.py`.
-The host ships each channel's block as two planar int8 rows (I and Q) of
-`planar_length(cfg)` samples: `left_halo` samples of history, the owned
-block, the right halo and a zero margin. Then, per batch of C channels:
+The counterpart of `airmodes/kernels/preamble_pallas.py`.
+
+Planar int8 path: the host ships each channel's block as two planar int8
+rows (I and Q) of `planar_length(cfg)` samples: `left_halo` samples of
+history, the owned block, the right halo and a zero margin. Then, per batch
+of C channels:
 
   B1 `preamble_detect_cands_planar`  (C, P) int8 x2 -> (C, tiles, 8, 128)
      per-lane candidate blocks (first 4 hits per tile lane column + counts)
@@ -12,17 +15,28 @@ block, the right halo and a zero margin. Then, per batch of C channels:
   B2 `slice_windows_planar`          -> one f32 power window per detection
   `_tail_from_power`                 -> bits, confidence, CRC/ECC, table
 
+f32 fast path, on framed (L+N+R, 2) blocks of f32 (or int8/int16) I/Q:
+
+  B3 `preamble_detect_2d` (one block) or B4 `preamble_detect_2d_batch`
+     (C blocks)                      -> keep mask and ref per owned sample
+  `dsp.pipeline.compact_detections`  -> the earliest K detections, counts
+  `gather_tail`                      -> one power window per detection,
+                                        then `_tail_from_power`
+
 Each kernel wrapper launches its hand-written CUDA kernel (csrc/) when its
 inputs are CUDA tensors, and runs the plain PyTorch version beside it only
 when they lie on the CPU. It counts its kernel launches in `LAUNCHES`.
 
 Numerics: the plain versions and the kernels compute the reference's f32
-values bit for bit: power as fma(xi, xi, xq*xq) (what XLA computes for
-xi*xi + xq*xq), the trailing noise sum by the log-doubling fold, chip
-energies as ((m0 + m1) + ...) * (1/sps), ref = (((p0+p1)+p2)+p3) * 0.25.
-The reference may take the noise sum as two matmuls instead
-(`mxu_window_sum`, "decision-equivalent", airmodes/config.py); the port
-always folds.
+values bit for bit, including the FMAs that XLA on the CPU contracts: power
+as fma(xi, xi, xq*xq), the trailing noise sum by the log-doubling fold,
+chip energies as ((m0 + m1) + ...) * (1/sps), and the reference level as
+(((p0 + p1) + p2) + p3) * 0.25 with, at sps > 1, pulse 0's chip-energy
+scale contracted into the first add in the detect kernels
+(`_ref_detect`) and every scale but pulse 1's in the decode tail
+(`_ref_chain`). The reference may take the noise sum as two matmuls
+instead (`mxu_window_sum`, "decision-equivalent", airmodes/config.py); the
+port always folds.
 """
 
 from __future__ import annotations
@@ -34,6 +48,7 @@ import torch
 from ..config import DspConfig
 from ..constants import PREAMBLE_PULSE_CHIPS, PREAMBLE_QUIET_CHIPS
 from ..dsp import pipeline as P
+from ..dsp.pipeline import _f32, fma_f32, power_f32, resolve_device
 
 _LOOKBACK = 256                            # noise window + peak/NMS lookback
 _LOOKBACK_ROWS = _LOOKBACK // 128          # 2
@@ -46,17 +61,15 @@ _CHUNK = 4096                              # owned samples per B1 CUDA block
 
 # kernel launches since the last reset_launches(), per wrapper; only the
 # CUDA paths count
-LAUNCHES = {"detect_cands": 0, "slice_windows": 0}
+LAUNCHES = {"detect_cands": 0, "slice_windows": 0, "detect_mask": 0}
+# detect_mask launches by route: B3 (one block) and B4 (a batch of C > 1)
+DETECT_MASK_ROUTES = {"B3": 0, "B4": 0}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _f32(x: float) -> float:
-    """x rounded to float32, as a Python float (exact in double)."""
-    return float(np.float32(x))
+    for d in (LAUNCHES, DETECT_MASK_ROUTES):
+        for k in d:
+            d[k] = 0
 
 
 # --- geometry (copied from the reference, so the layouts agree) --------------
@@ -158,17 +171,6 @@ def to_planar_i8(blocks: np.ndarray, cfg: DspConfig, tile: int = None):
     return out_i, out_q
 
 
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on. "cuda" without a card raises:
-    nothing moves to the CPU unless the caller asks for it."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "plain PyTorch versions on the CPU")
-    return dev
-
-
 # --- power -------------------------------------------------------------------
 
 def power_i8(xi8: torch.Tensor, xq8: torch.Tensor) -> torch.Tensor:
@@ -183,28 +185,34 @@ def power_i8(xi8: torch.Tensor, xq8: torch.Tensor) -> torch.Tensor:
     return (fi64 * fi64 + (fq * fq).to(torch.float64)).to(torch.float32)
 
 
-# --- kernel B1: detect + per-lane candidate extraction --------------------------
+# --- the preamble rule, shared by kernels B1, B3 and B4 ----------------------
 
-def _keep_plain(xi8: torch.Tensor, xq8: torch.Tensor,
-                cfg: DspConfig) -> torch.Tensor:
-    """(C, P) int8 x2 -> (C, block_size) bool preamble hits over the owned
-    samples, on the flat per-channel array (the decision does not depend
-    on the tile)."""
+def _ref_detect(acc0, p0, p1, p2, p3, sps: int):
+    """Reference level of the detect kernels, as the reference computes it
+    on the CPU: (((p0 + p1) + p2) + p3) * 0.25, where at sps > 1 XLA
+    contracts the chip-energy scale of pulse 0 (acc0 * 1/sps) into the
+    first add; pulses 1-3 arrive through the kernel's lane shifts and are
+    not contracted."""
+    if sps > 1:
+        s = _f32(1.0 / sps)
+        first = fma_f32(acc0, s, p1)
+    else:
+        first = p0 + p1
+    return ((first + p2) + p3) * 0.25
+
+
+def _detect_plain(m: torch.Tensor, cfg: DspConfig):
+    """The detect kernels' rule on (C, >= 256 + N + halo) f32 power rows,
+    owned sample d at column d + 256 -> (keep bool (C, N), ref f32 (C, N))
+    over the owned samples. The decision does not depend on the tile."""
     sps = cfg.sps
     half = cfg.nms_chips * sps
     n = cfg.block_size
-    m = power_i8(xi8, xq8)                              # (C, P)
     ws = m
     for s in (1, 2, 4, 8, 16, 32, 64):                  # ws[y] = sum m[y:y+128]
         ws = ws[:, :-s] + ws[:, s:]
-    if sps > 1:
-        length = m.shape[1] - (sps - 1)
-        acc = m[:, :length]
-        for s in range(1, sps):
-            acc = acc + m[:, s:s + length]
-        ce = acc * _f32(1.0 / sps)
-    else:
-        ce = m
+    acc = P.chip_sums(m, sps) if sps > 1 else m
+    ce = acc * _f32(1.0 / sps) if sps > 1 else m
 
     x0 = _LOOKBACK - half                               # first test sample
     nt = n + 2 * half
@@ -213,7 +221,7 @@ def _keep_plain(xi8: torch.Tensor, xq8: torch.Tensor,
         return arr[:, x0 + off: x0 + off + nt]
 
     p0, p1, p2, p3 = (at(ce, c * sps) for c in PREAMBLE_PULSE_CHIPS)
-    ref = (((p0 + p1) + p2) + p3) * 0.25
+    ref = _ref_detect(at(acc, 0), p0, p1, p2, p3, sps)
     nf = at(ws, -128) * (1.0 / 128.0)
     ok = (p0 >= at(ce, -1)) & (p0 > at(ce, 1))
     pmin = torch.minimum(torch.minimum(p0, p1), torch.minimum(p2, p3))
@@ -231,7 +239,11 @@ def _keep_plain(xi8: torch.Tensor, xq8: torch.Tensor,
     for o in range(1, half + 1):
         left = torch.maximum(left, score[:, half - o: half - o + n])
         right = torch.maximum(right, score[:, half + o: half + o + n])
-    return ok[:, half: half + n] & (own > left) & (own >= right)
+    keep = ok[:, half: half + n] & (own > left) & (own >= right)
+    return keep, ref[:, half: half + n]
+
+
+# --- kernel B1: detect + per-lane candidate extraction -----------------------
 
 
 def _extract_plain(keep: torch.Tensor, tile: int,
@@ -261,12 +273,14 @@ def _extract_plain(keep: torch.Tensor, tile: int,
 def detect_cands_plain(xi8: torch.Tensor, xq8: torch.Tensor, cfg: DspConfig,
                        tile: int) -> torch.Tensor:
     """Plain PyTorch version of kernel B1 (same inputs, same output)."""
-    return _extract_plain(_keep_plain(xi8, xq8, cfg), tile, _per_lane(tile))
+    keep, _ = _detect_plain(power_i8(xi8, xq8), cfg)
+    return _extract_plain(keep, tile, _per_lane(tile))
 
 
-def _b1_rhalo(cfg: DspConfig) -> int:
-    """Samples the B1 CUDA block stages after its chunk: the NMS window
-    plus the 16 chips of the preamble test, rounded up to 32."""
+def _detect_rhalo(cfg: DspConfig) -> int:
+    """Samples the detect kernels' CUDA blocks (B1, B3/B4) stage after
+    their chunk: the NMS window plus the 16 chips of the preamble test,
+    rounded up to 32."""
     need = cfg.nms_chips * cfg.sps + 16 * cfg.sps
     return -(-need // 32) * 32
 
@@ -294,7 +308,7 @@ def launch_detect_cands(xi8, xq8, cfg, tile, scratch, out) -> None:
     tiles = cfg.block_size // tile
     nchunk = tile // _CHUNK
     half = cfg.nms_chips * cfg.sps
-    rhalo = _b1_rhalo(cfg)
+    rhalo = _detect_rhalo(cfg)
     # the last chunk stages up to planar sample block_size + 256 + rhalo
     if cfg.block_size + _LOOKBACK + rhalo > p:
         raise ValueError("planar rows too short for the detect kernel")
@@ -382,7 +396,7 @@ def compact_candidates_unordered(cands: torch.Tensor, cfg: DspConfig,
     return det_idx, valid, n_det, overflow
 
 
-# --- kernel B2: per-detection power windows ------------------------------------
+# --- kernel B2: per-detection power windows ----------------------------------
 
 def slice_windows_plain(ri: torch.Tensor, rq: torch.Tensor,
                         base: torch.Tensor, cfg: DspConfig) -> torch.Tensor:
@@ -445,7 +459,7 @@ def slice_windows_planar(ri: torch.Tensor, rq: torch.Tensor,
                                base.contiguous(), cfg)
 
 
-# --- decode tail and the batch entry points -----------------------------------
+# --- decode tail and the batch entry points ----------------------------------
 
 def _tail_from_power(w2: torch.Tensor, det_idx, valid, n_det, overflow,
                      cfg: DspConfig):
@@ -455,17 +469,10 @@ def _tail_from_power(w2: torch.Tensor, det_idx, valid, n_det, overflow,
     sps = cfg.sps
     event_off = nw = cfg.noise_window
     noise_at = w2[..., :nw].mean(dim=-1)
-    if sps == 1:
-        ce = w2
-    else:
-        length = w2.shape[-1] - (sps - 1)
-        acc = w2[..., :length]
-        for s in range(1, sps):
-            acc = acc + w2[..., s:s + length]
-        ce = acc * _f32(1.0 / sps)
-    p0, p1, p2, p3 = (ce[..., event_off + c * sps]
-                      for c in PREAMBLE_PULSE_CHIPS)
-    ref_level = (((p0 + p1) + p2) + p3) * 0.25
+    acc = P.chip_sums(w2, sps) if sps > 1 else w2
+    ce = acc * _f32(1.0 / sps) if sps > 1 else w2
+    ref_level = P.ref_chain([acc[..., event_off + c * sps]
+                            for c in PREAMBLE_PULSE_CHIPS], sps)
     chip0 = event_off + 16 * sps
     energies = ce[..., chip0: chip0 + 224 * sps: sps]
     e0 = energies[..., 0::2]
@@ -500,12 +507,6 @@ def demod_batch_planar(xi8: torch.Tensor, xq8: torch.Tensor, cfg: DspConfig,
     return _tail_from_power(w2, det_idx, valid, n_det, ovf, cfg)
 
 
-def _as_device_i8(x, dev: torch.device) -> torch.Tensor:
-    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
-        np.ascontiguousarray(x))
-    return t.to(dev, non_blocking=True)
-
-
 def demod_batch_packed_planar(xi8, xq8, cfg: DspConfig, tile: int = None,
                               nbuf: int = DEFAULT_NBUF,
                               device="cuda") -> torch.Tensor:
@@ -513,18 +514,261 @@ def demod_batch_packed_planar(xi8, xq8, cfg: DspConfig, tile: int = None,
     (C, K+1, 9) int32 on `device`. Runs on the card unless the caller asks
     for the CPU, where it takes the kernels' plain versions."""
     dev = resolve_device(device)
-    xi = _as_device_i8(xi8, dev)
-    xq = _as_device_i8(xq8, dev)
+    xi = P._to_device(xi8, dev)
+    xq = P._to_device(xq8, dev)
     return P.pack_table(demod_batch_planar(xi, xq, cfg, tile=tile,
                                            nbuf=nbuf))
 
 
+# --- the f32 front: kernels B3 and B4 ----------------------------------------
+#
+# The counterpart of the 2D f32 half of preamble_pallas.py. B3
+# (`preamble_detect_2d`) takes one framed block (L+N+R, 2) and B4
+# (`preamble_detect_2d_batch`) a batch (C, L+N+R, 2) of interleaved I/Q,
+# f32 or int8/int16 wire samples unit-scaled by `_to_f32`; both give the
+# keep mask (int32) and the reference level (f32) of every owned sample. One
+# CUDA kernel with a batch dimension (csrc/detect_mask.cu) serves both.
+
+_HALO_R2 = 1792       # right window margin of the reference's 2D kernels
+
+
+def _to_f32(iq: torch.Tensor) -> torch.Tensor:
+    """int8/int16 wire samples -> f32 at unit full scale (exactly 1/127
+    and 1/32767: the host quantizers report full_scale = gain/127 on that
+    assumption); float input -> f32."""
+    if iq.dtype == torch.uint8:
+        raise TypeError(
+            "uint8 (raw uc8 bytes) are offset-binary: convert on host "
+            "((u - 127.5) / 127.5, io.sources raw_file_chunks) or feed "
+            "int8/int16/float32")
+    if iq.dtype in (torch.int8, torch.int16):
+        scale = 1.0 / 127.0 if iq.dtype == torch.int8 else 1.0 / 32767.0
+        return iq.to(torch.float32) * _f32(scale)
+    if iq.is_complex() or not iq.is_floating_point():
+        raise TypeError(f"expected (..., 2) f32/int8/int16 I/Q, got "
+                        f"{iq.dtype}")
+    return iq.to(torch.float32)
+
+
+def supported_2d_tile(cfg: DspConfig):
+    """Largest tile the f32 detect kernels support for cfg, or None: the
+    gate the streaming runner reads before it picks B3/B4 over the XLA
+    path (`dsp.pipeline.demod_block`)."""
+    if cfg.noise_window != 128 or 14 * cfg.sps >= 128:
+        return None
+    for t in (16384, 8192, 4096):
+        if cfg.block_size % t == 0:
+            return t
+    return None
+
+
+def _check_2d_limits(cfg: DspConfig) -> None:
+    """The reference's 2D kernels shift by up to 14*sps lanes, which its
+    TPU construction supports below 128: sps <= 9."""
+    if 14 * cfg.sps >= 128:
+        raise ValueError(
+            f"2D/planar Pallas detect supports sps <= 9 (channel_rate <= "
+            f"18 Msps); got sps={cfg.sps} — use the XLA pipeline "
+            "(demod_block / demod_batch) at this rate")
+
+
+def _check_2d(cfg: DspConfig, tile: int) -> int:
+    """The reference's asserts; returns the padded per-channel length the
+    kernels see (whole 128-sample rows up to the last tile's window)."""
+    _check_2d_limits(cfg)
+    if cfg.noise_window != 128:
+        raise ValueError("the f32 detect kernels fix noise_window=128")
+    n = cfg.block_size
+    if n % tile or tile % 1024:
+        raise ValueError(f"tile {tile} must divide block_size {n} and be "
+                         "a multiple of 1024")
+    rows_w = (_LOOKBACK + tile + _HALO_R2) // 128
+    return ((n // tile - 1) * (tile // 128) + rows_w) * 128
+
+
+def detect_mask_plain(x: torch.Tensor, valid: int, length: int,
+                      cfg: DspConfig):
+    """Plain PyTorch version of kernels B3/B4: (C, L, 2) f32 I/Q of which
+    the first `valid` samples count (the rest read as zeros), padded to
+    `length` -> (mask int32 (C, N), ref f32 (C, N))."""
+    C = x.shape[0]
+    xp = torch.zeros((C, length, 2), dtype=torch.float32, device=x.device)
+    k = min(valid, length, x.shape[1])
+    xp[:, :k] = x[:, :k]
+    keep, ref = _detect_plain(power_f32(xp[..., 0], xp[..., 1]), cfg)
+    return keep.to(torch.int32), ref
+
+
+def launch_detect_mask(x, valid, cfg, mask, ref) -> None:
+    """Launch B3/B4 on a contiguous CUDA (C, L, 2) f32 tensor, of which
+    the first `valid` samples per channel count, into the contiguous
+    (C, N) int32 mask and f32 ref buffers; every element of both is
+    written."""
+    from . import _ext
+    C, L = x.shape[0], x.shape[1]
+    n = cfg.block_size
+    if n % _CHUNK:
+        raise ValueError("block_size must be a multiple of 4096")
+    if x.dtype != torch.float32 or x.dim() != 3 or x.shape[2] != 2 \
+            or not x.is_contiguous() or x.data_ptr() % 8:
+        raise ValueError("B3/B4 input must be contiguous, 8-byte aligned "
+                         "(C, L, 2) f32")
+    for buf, dt in ((mask, torch.int32), (ref, torch.float32)):
+        if tuple(buf.shape) != (C, n) or buf.dtype != dt \
+                or not buf.is_contiguous():
+            raise ValueError("B3/B4 outputs of the wrong shape, type or "
+                             "layout")
+    lib = _ext.lib("detect_mask")
+    with torch.cuda.device(x.device):
+        rc = lib.detect_mask_launch(
+            x.data_ptr(), mask.data_ptr(), ref.data_ptr(), C, L,
+            min(int(valid), L), n, n // _CHUNK, cfg.sps,
+            cfg.nms_chips * cfg.sps, _detect_rhalo(cfg), _f32(cfg.threshold),
+            _f32(cfg.pulse_tolerance), _f32(cfg.quiet_tolerance),
+            _f32(1.0 / cfg.sps),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _ext.check(rc, "detect_mask")
+    LAUNCHES["detect_mask"] += 1
+    DETECT_MASK_ROUTES["B3" if C == 1 else "B4"] += 1
+
+
+def _detect_mask(x: torch.Tensor, valid: int, length: int,
+                 cfg: DspConfig):
+    """B3/B4 on x's device: the kernel for a CUDA tensor, the plain version
+    for a CPU tensor."""
+    if x.device.type == "cpu":
+        return detect_mask_plain(x, valid, length, cfg)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    C = x.shape[0]
+    mask = torch.empty((C, cfg.block_size), dtype=torch.int32,
+                       device=x.device)
+    ref = torch.empty((C, cfg.block_size), dtype=torch.float32,
+                      device=x.device)
+    x = x.contiguous()
+    if x.data_ptr() % 8:            # the kernel reads 8-byte I/Q pairs
+        x = x.clone()
+    launch_detect_mask(x, valid, cfg, mask, ref)
+    return mask, ref
+
+
+def b3_operands(iq: torch.Tensor, cfg: DspConfig, tile: int = 16384):
+    """B3's view of one (L, 2) block of f32/int8/int16 I/Q: (x (1, L, 2)
+    f32, valid, length). As the reference, it reads whole 128-sample rows:
+    a trailing partial row reads as zeros, and so does everything past the
+    input, up to the padded `length`."""
+    length = _check_2d(cfg, tile)
+    x = _to_f32(iq)
+    if x.dim() != 2 or x.shape[1] != 2:
+        raise ValueError(f"expected (L, 2) I/Q, got {tuple(x.shape)}")
+    return x[None], (x.shape[0] // 128) * 128, length
+
+
+def b4_operands(iq: torch.Tensor, cfg: DspConfig, tile: int = 16384):
+    """B4's view of a (C, L, 2) batch: (x f32, valid, length), the length
+    rounded to the reference's 8-row stride; past the input reads as 0."""
+    length = -(-_check_2d(cfg, tile) // 1024) * 1024
+    x = _to_f32(iq)
+    if x.dim() != 3 or x.shape[2] != 2:
+        raise ValueError(f"expected (C, L, 2) I/Q, got {tuple(x.shape)}")
+    return x, min(x.shape[1], length), length
+
+
+def preamble_detect_2d(iq: torch.Tensor, cfg: DspConfig,
+                       tile: int = 16384):
+    """Kernel B3: one (L+N+R, 2) block of f32/int8/int16 I/Q on the card
+    (or the CPU) -> (mask int32 (N,), ref f32 (N,))."""
+    mask, ref = _detect_mask(*b3_operands(iq, cfg, tile), cfg)
+    return mask[0], ref[0]
+
+
+def preamble_detect_2d_batch(iq: torch.Tensor, cfg: DspConfig,
+                             tile: int = 16384):
+    """Kernel B4: (C, L+N+R, 2) f32/int8/int16 I/Q -> (mask int32 (C, N),
+    ref f32 (C, N))."""
+    return _detect_mask(*b4_operands(iq, cfg, tile), cfg)
+
+
+# --- the fast tail -----------------------------------------------------------
+
+def gather_tail(iq: torch.Tensor, det_idx, valid, ref, n_det, overflow,
+                cfg: DspConfig) -> P.DetectionTable:
+    """K-sized tail: raw (*B, L', 2) block(s) + (*B, K) detections ->
+    DetectionTable. Each detection's (noise_window + 242*sps)-sample
+    window is gathered from the raw block (zero-padded to L+N+R first),
+    its power taken as the detect kernel takes it, and the reference
+    level recomputed from it; `ref` is unused, as in the reference."""
+    del ref
+    sps = cfg.sps
+    left, nw = cfg.left_halo, cfg.noise_window
+    need = left + cfg.block_size + cfg.right_halo
+    if iq.shape[-2] < need:
+        iq = torch.nn.functional.pad(iq, (0, 0, 0, need - iq.shape[-2]))
+    W = nw + 242 * sps
+    lead = det_idx.shape[:-1]
+    K = det_idx.shape[-1]
+    x = iq.reshape(-1, iq.shape[-2], 2)
+    start = left + torch.where(valid, det_idx, 0).to(torch.int64) - nw
+    j = torch.arange(W, dtype=torch.int64, device=iq.device)
+    idx = (start.reshape(x.shape[0], K)[..., None] + j).reshape(
+        x.shape[0], K * W)
+    win = torch.gather(x, 1, idx[..., None].expand(-1, -1, 2))
+    if win.dtype == torch.int8:
+        w2 = power_i8(win[..., 0], win[..., 1])
+    else:
+        f = _to_f32(win)
+        w2 = power_f32(f[..., 0], f[..., 1])
+    w2 = w2.reshape(*lead, K, W)
+    return _tail_from_power(w2, det_idx, valid, n_det, overflow, cfg)
+
+
+def demod_block_fast(iq: torch.Tensor, cfg: DspConfig,
+                     tile: int = 16384) -> P.DetectionTable:
+    """One block, (L+N+R, 2) I/Q on its device: B3, compaction, gather
+    tail -> DetectionTable."""
+    mask, ref = preamble_detect_2d(iq, cfg, tile=tile)
+    det_idx, valid, n_det, overflow = P.compact_detections(
+        mask.bool(), cfg.max_detections)
+    return gather_tail(iq, det_idx, valid, ref, n_det, overflow, cfg)
+
+
+def demod_batch_fast(iq: torch.Tensor, cfg: DspConfig,
+                     tile: int = 16384) -> P.DetectionTable:
+    """A batch, (C, L+N+R, 2) I/Q on its device: B4, compaction, gather
+    tail -> DetectionTable with leading C."""
+    mask, ref = preamble_detect_2d_batch(iq, cfg, tile=tile)
+    det_idx, valid, n_det, overflow = P.compact_detections(
+        mask.bool(), cfg.max_detections)
+    return gather_tail(iq, det_idx, valid, ref, n_det, overflow, cfg)
+
+
+def demod_block_packed_fast(iq, cfg: DspConfig, tile: int = 16384,
+                            device="cuda") -> torch.Tensor:
+    """demod_block_fast + pack_table: one block (numpy or tensor) ->
+    (K+1, 9) int32 on `device`. Runs on the card unless the caller asks
+    for the CPU, where it takes the kernel's plain version."""
+    x = P._to_device(iq, resolve_device(device))
+    return P.pack_table(demod_block_fast(x, cfg, tile=tile))
+
+
+def demod_batch_packed_fast(iq, cfg: DspConfig, tile: int = 16384,
+                            device="cuda") -> torch.Tensor:
+    """demod_batch_fast + pack_table: (C, L+N+R, 2) -> (C, K+1, 9) int32
+    on `device`."""
+    x = P._to_device(iq, resolve_device(device))
+    return P.pack_table(demod_batch_fast(x, cfg, tile=tile))
+
+
 __all__ = [
-    "CAND_ROWS", "DEFAULT_NBUF", "LAUNCHES", "cand_capacity",
-    "compact_candidates_unordered", "default_tile", "demod_batch_packed_planar",
-    "demod_batch_planar", "detect_cands_buffers", "detect_cands_plain",
-    "launch_detect_cands", "launch_slice_windows", "planar_length", "power_i8",
-    "preamble_detect_cands_planar", "reset_launches", "resolve_device",
-    "slice_windows_planar", "slice_windows_plain", "supported_planar_tile",
-    "to_planar_i8",
+    "CAND_ROWS", "DEFAULT_NBUF", "DETECT_MASK_ROUTES", "LAUNCHES",
+    "b3_operands", "b4_operands", "cand_capacity",
+    "compact_candidates_unordered", "default_tile", "demod_batch_fast",
+    "demod_batch_packed_fast", "demod_batch_packed_planar",
+    "demod_batch_planar", "demod_block_fast", "demod_block_packed_fast",
+    "detect_cands_buffers", "detect_cands_plain", "detect_mask_plain",
+    "gather_tail", "launch_detect_cands", "launch_detect_mask",
+    "launch_slice_windows", "planar_length", "power_i8", "preamble_detect_2d",
+    "preamble_detect_2d_batch", "preamble_detect_cands_planar",
+    "reset_launches", "slice_windows_planar", "slice_windows_plain",
+    "supported_2d_tile", "supported_planar_tile", "to_planar_i8",
 ]

@@ -1,11 +1,11 @@
 """ctypes binding for the native IQ streaming runtime (iqstream.cc).
 
 A copy of `airmodes.native` (the C++ framer: ring buffer, overlap-save
-framing, per-block AGC, int8 quantization and the planar I/Q split) and of
-its loader, which imports only the standard library and numpy. Builds the
-shared library on first use with g++ (cached next to the source). Python<->C
-boundary is a C ABI — no pybind11 dependency.
-"""
+framing as f32 blocks, or with per-block AGC, int8 quantization and the
+planar I/Q split) and of its loader, which imports only the standard
+library and numpy. Builds the shared library on first use with g++ (cached
+next to the source). Python<->C boundary is a C ABI — no pybind11
+dependency."""
 
 from __future__ import annotations
 
@@ -74,6 +74,9 @@ def load() -> ctypes.CDLL:
         lib.iq_stream_start_file.restype = ip
         lib.iq_stream_start_file.argtypes = [vp, cp, ip, ctypes.c_double,
                                              u64]
+        lib.iq_stream_next_block.restype = ip
+        lib.iq_stream_next_block.argtypes = [vp, ctypes.c_void_p,
+                                             ctypes.POINTER(i64)]
         lib.iq_stream_next_block_planar_agc.restype = ip
         lib.iq_stream_next_block_planar_agc.argtypes = [
             vp, ctypes.c_void_p, ctypes.c_void_p, u64,
@@ -87,7 +90,7 @@ _FMT = {"complex64": 0, "f32": 0, "sc16": 1, "uc8": 2}
 
 class IQStream:
     """Native streaming source: ring buffer + overlap-save framer, read
-    as planar int8 rows with per-block AGC."""
+    as f32 (total, 2) blocks or as planar int8 rows with per-block AGC."""
 
     def __init__(self, cfg, ring_samples: Optional[int] = None):
         lib = load()
@@ -148,6 +151,35 @@ class IQStream:
             raise OSError(f"cannot open {path}")
 
     # --- consumer -----------------------------------------------------------
+
+    def next_block(self) -> Optional[Tuple[np.ndarray, int]]:
+        """Next framed block as float32 (total, 2), in a buffer of its own,
+        or None at end of stream. Waits (with a short sleep loop) until
+        data is available."""
+        import time as _t
+        # the C side writes total*2 floats into it
+        out = np.empty((self.total, 2), np.float32)
+        start = ctypes.c_int64(0)
+        while True:
+            with self._lock:
+                if not self._h:
+                    return None
+                rc = self._lib.iq_stream_next_block(
+                    self._h, out.ctypes.data_as(ctypes.c_void_p),
+                    ctypes.byref(start))
+            if rc == 1:
+                return out, int(start.value)
+            if rc == -1:
+                return None
+            _t.sleep(0.001)
+
+    def blocks(self):
+        """Generator over all f32 blocks until end of stream."""
+        while True:
+            nxt = self.next_block()
+            if nxt is None:
+                return
+            yield nxt
 
     def next_block_planar_agc(self, out_i: np.ndarray, out_q: np.ndarray,
                               target: float = 120.0, stop=None

@@ -13,16 +13,25 @@ process per source, all at once), then:
      block) and silence, and on mixed traffic at 4 Msps: exactly equal;
   3. holds kernel B2 (per-detection power windows) against its plain version
      on the window starts of phase 2, with empty rows and a window at the
-     last owned sample: exactly equal; then launches both kernels 100 times
-     on each input into buffers flanked by guard zones, with the allocator
-     churned between runs: equal to a fresh plain result every run, no
-     write outside a buffer, no element of one left unwritten;
-  4. drives the main path, `run_native_pipelined` on a uc8 capture of 32
+     last owned sample: exactly equal;
+  4. holds kernel B3/B4 (detect mask and reference level on f32 I/Q)
+     against its plain version, mask and ref bit for bit: on the mixed,
+     dense and silence batches at C = 8 (B4) and on their first blocks at
+     C = 1 (B3), on int8 and int16 input, and at 4 Msps;
+  5. launches B1, B2 and B3/B4 100 times on each input of phases 2-4 into
+     buffers flanked by guard zones, with the allocator churned between
+     runs: equal to a fresh plain result every run, no write outside a
+     buffer, no element of one left unwritten;
+  6. drives the int8 path, `run_native_pipelined` on a uc8 capture of 32
      blocks of 2^20 samples: at least 99% of each DF's injected frames must
-     decode, both kernels must have launched, the first batch's packed
-     table must equal the CPU's (noise within rtol 1e-5), and the messages
-     of every batch must equal those of the same runner on the CPU;
-  5. prints one JSON line of per-kernel numbers, the card line, and last
+     decode, B1 and B2 must have launched, the first batch's packed table
+     must equal the CPU's (noise within rtol 1e-5), and the messages of
+     every batch must equal those of the same runner on the CPU;
+  7. drives the f32 path, `IQStream.blocks()` into `run_pipelined` (batch 8,
+     kernel B4) on a complex64 capture of 32 blocks, with the same checks;
+     then `run_pipelined` at batch 1 over 4 blocks (kernel B3) and
+     `run_channels` over two channels of 4 blocks, each equal to the CPU;
+  8. prints one JSON line of per-kernel numbers, the card line, and last
      {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero. Without a CUDA card, or without the
@@ -32,6 +41,7 @@ The port imports no JAX; neither does this script.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -97,13 +107,40 @@ def mixed_capture(cfg, n_blocks, msg_rate_hz=100.0, snr_db=15.0, seed=0,
         frames, rate=cfg.channel_rate, snr_db=snr_db, spacing=spacing,
         seed=seed, total_samples=total)
     gain = 120.0 / (float(np.max(np.abs(iq))) or 1.0)
-    return frame_planar(iq, cfg, n_blocks, gain), truth
+    return (frame_planar(iq, cfg, n_blocks, gain),
+            frame_f32(iq, cfg, n_blocks, gain / 127.0)), truth
 
 
-def write_uc8_capture(cfg, path, n_blocks, seed=1):
-    """uc8 (rtl-sdr byte format) capture of mixed traffic, 13 frames per
-    block at 18 dB, cut from one frame list so that every DF appears;
-    returns the ground truth with global sample indices."""
+def frame_f32(iq, cfg, n_blocks, scale):
+    """Overlapped blocks of a capture (zero-padded at its edges) as
+    (n_blocks, L+N+R, 2) interleaved f32 I/Q, scaled by `scale`."""
+    import numpy as np
+    left, n, right = cfg.left_halo, cfg.block_size, cfg.right_halo
+    out = np.zeros((n_blocks, left + n + right, 2), np.float32)
+    for k in range(n_blocks):
+        pos = k * n
+        lo, hi = max(pos - left, 0), min(pos + n + right, len(iq))
+        seg = iq[lo:hi]
+        at = left - (pos - lo)
+        out[k, at: at + len(seg), 0] = seg.real * scale
+        out[k, at: at + len(seg), 1] = seg.imag * scale
+    return out
+
+
+def wire(x, dtype):
+    """Unit-scale f32 I/Q quantized to an SDR wire format (int8: the
+    repository's quantize rule at full scale 127; int16: 32767)."""
+    import numpy as np
+    from airmodes_torch.dsp.host import quantize_i8_np
+    if dtype == np.int8:
+        return quantize_i8_np(x, 127.0)
+    return np.clip(np.round(x * 32767.0), -32767, 32767).astype(np.int16)
+
+
+def write_capture(cfg, path, n_blocks, seed=1, fmt="uc8"):
+    """uc8 (rtl-sdr byte format) or complex64 capture of mixed traffic, 13
+    frames per block at 18 dB, cut from one frame list so that every DF
+    appears; returns the ground truth with global sample indices."""
     import numpy as np
     from airmodes_torch.testing import encoder
     truth = []
@@ -119,6 +156,9 @@ def write_uc8_capture(cfg, path, n_blocks, seed=1):
                 t.sample_index += b * cfg.block_size
             truth += tr
             x = iq / (float(np.max(np.abs(iq))) or 1.0) * 0.9
+            if fmt == "complex64":
+                x.astype(np.complex64).tofile(f)
+                continue
             u = np.empty(2 * cfg.block_size, np.uint8)
             u[0::2] = np.round(x.real * 127.5 + 127.5).astype(np.uint8)
             u[1::2] = np.round(x.imag * 127.5 + 127.5).astype(np.uint8)
@@ -156,6 +196,11 @@ def b1_ops_per_sample(sps: int, half: int) -> int:
     one, an FMA two): power 5, window fold 7, chip energy sps (sps > 1),
     pulse/threshold/quiet tests 28, NMS 2*half + 2."""
     return 5 + 7 + (sps if sps > 1 else 0) + 28 + 2 * half + 2
+
+
+def b34_ops_per_sample(sps: int, half: int) -> int:
+    """As B1's, with the power of an f32 pair taking 3 (no int8 scaling)."""
+    return b1_ops_per_sample(sps, half) - 2
 
 
 # --- phases ------------------------------------------------------------------
@@ -318,6 +363,87 @@ def phase_repeat(cfg, b1_out, dev, iters):
           flush=True)
 
 
+def phase_b34(cfg, inputs, dev, flush):
+    """B3/B4 kernel vs plain on the card for each named (C, L, 2) input
+    (C = 1 takes the B3 wrapper, C > 1 the B4 wrapper): mask and ref bit
+    for bit. Returns ({name: operands}, max abs error, {C: timing of the
+    first input with that C})."""
+    import torch
+    from airmodes_torch.kernels import preamble as K
+    tile = K.supported_2d_tile(cfg)
+    out, worst, timing = {}, 0.0, {}
+    for name, x in inputs.items():
+        xt = torch.from_numpy(x).to(dev)
+        C = xt.shape[0]
+        if C == 1:
+            ops = K.b3_operands(xt[0], cfg, tile)
+            got = [g[None] for g in K.preamble_detect_2d(xt[0], cfg, tile)]
+        else:
+            ops = K.b4_operands(xt, cfg, tile)
+            got = K.preamble_detect_2d_batch(xt, cfg, tile)
+        want = K.detect_mask_plain(*ops, cfg)
+        torch.cuda.synchronize()
+        err = max(float((got[0] - want[0]).abs().max()),
+                  float((got[1] - want[1]).abs().max()))
+        print(f"B3/B4 sps={cfg.sps} {name} (C={C}, {x.dtype}): hits "
+              f"{int(want[0].sum())}, max |kernel - plain| {err}",
+              flush=True)
+        mask_eq = torch.equal(got[0], want[0])
+        ref_eq = torch.equal(got[1].view(torch.int32),
+                             want[1].view(torch.int32))
+        if not (mask_eq and ref_eq):
+            again = K.detect_mask_plain(*ops, cfg)
+            raise AssertionError(
+                f"B3/B4 kernel != plain on {name} (sps={cfg.sps}); mask "
+                f"equal: {mask_eq}, ref bits equal: {ref_eq}, plain "
+                f"repeats: {torch.equal(again[0], want[0])}")
+        worst = max(worst, err)
+        out[name] = ops
+        if C not in timing and x.dtype.name == "float32":
+            fn = ((lambda: K.preamble_detect_2d(xt[0], cfg, tile)) if C == 1
+                  else (lambda: K.preamble_detect_2d_batch(xt, cfg, tile)))
+            timing[C] = (time_ms(fn, flush=flush),
+                         time_ms(lambda: K.detect_mask_plain(*ops, cfg),
+                                 iters=5, flush=flush),
+                         xt.numel() * 4 + 2 * C * cfg.block_size * 4,
+                         C * cfg.block_size)
+    return out, worst, timing
+
+
+def phase_repeat_b34(cfg, b34_out, dev, iters):
+    """B3/B4 launched `iters` times on each input of phase_b34 into
+    guarded buffers, each time against a fresh plain result, with the
+    allocator churned between runs (as phase_repeat)."""
+    import numpy as np
+    import torch
+    from airmodes_torch.kernels import preamble as K
+    rng = np.random.default_rng(8)
+    n = cfg.block_size
+    t0 = time.perf_counter()
+    for name, (x, valid, length) in b34_out.items():
+        C = x.shape[0]
+        for it in range(iters):
+            churn = torch.full((int(rng.integers(1, 1 << 22)),), CANARY,
+                               dtype=torch.int32, device=dev)
+            mbuf, m = _guarded(C * n, dev)
+            rbuf, r = _guarded(C * n, dev)
+            K.launch_detect_mask(x, valid, cfg, m.view(C, n),
+                                 r.view(torch.float32).view(C, n))
+            want_m, want_r = K.detect_mask_plain(x, valid, length, cfg)
+            del churn
+            for b, inner, what in ((mbuf, m, "B3/B4 mask"),
+                                   (rbuf, r, "B3/B4 ref")):
+                _check_guarded(b, inner, f"{what} on {name}, run {it}")
+            if not (torch.equal(m.view(C, n), want_m) and torch.equal(
+                    r.view(C, n), want_r.view(torch.int32))):
+                raise AssertionError(f"B3/B4 kernel != plain on {name}, "
+                                     f"run {it}")
+    print(f"repeat: B3/B4 x{iters} on each of {list(b34_out)} "
+          f"(sps={cfg.sps}): equal to plain every run, guards intact, every "
+          f"output element written ({time.perf_counter() - t0:.2f} s)",
+          flush=True)
+
+
 def profile_step(fn, smi, reps=5):
     """torch.profiler over `reps` device steps: the card's busy share of
     the window, kernel launches per step, and the kernels that take the
@@ -386,7 +512,7 @@ def phase_main(cfg, dev, tmp, smi):
                                                  run_native_pipelined)
     from airmodes_torch.kernels import preamble as K
     path = os.path.join(tmp, "main.uc8")
-    truth = write_uc8_capture(cfg, path, N_MAIN_BLOCKS)
+    truth = write_capture(cfg, path, N_MAIN_BLOCKS)
 
     # the first batch as the runner frames it, on the card and on the CPU
     p = K.planar_length(cfg)
@@ -428,9 +554,10 @@ def phase_main(cfg, dev, tmp, smi):
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     print(f"main: launches {launches}", flush=True)
-    for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {k} never launched on the main path")
+    for k in ("detect_cands", "slice_windows"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on the int8 "
+                                 f"path")
 
     # every batch, not only the first: the same runner on the CPU (the
     # kernels' plain versions) must emit the same messages, byte for byte
@@ -462,6 +589,146 @@ def phase_main(cfg, dev, tmp, smi):
     return launches
 
 
+def _stream_blocks(cfg, path, start=0, stop=None):
+    """Framed f32 blocks of a complex64 capture from the native framer,
+    blocks [start, stop)."""
+    from airmodes_torch.native import IQStream
+    st = IQStream(cfg)
+    try:
+        st.start_file(path, fmt="complex64")
+        yield from itertools.islice(st.blocks(), start, stop)
+    finally:
+        st.close()
+
+
+def _messages(steps):
+    return [m for b in steps for m in b]
+
+
+def phase_main_f32(cfg, dev, tmp, smi):
+    """The f32 path end to end: IQStream.blocks() -> run_pipelined (batch 8,
+    B4) over 32 blocks; run_pipelined at batch 1 (B3) and run_channels over
+    two channels, 4 blocks each. Returns the launch counts per route."""
+    import numpy as np
+    import torch
+    from airmodes_torch.dsp.host import BlockStats
+    from airmodes_torch.io.stream import (_batch_step, _default_step,
+                                          _stack_host, run_channels,
+                                          run_pipelined)
+    from airmodes_torch.kernels import preamble as K
+    path = os.path.join(tmp, "main.c64")
+    truth = write_capture(cfg, path, N_MAIN_BLOCKS, fmt="complex64")
+    tile = K.supported_2d_tile(cfg)
+
+    # the first batch as the runner frames it, on the card and on the CPU
+    xb = np.stack([b for b, _ in _stream_blocks(cfg, path, 0, BATCH)])
+    xt = torch.from_numpy(xb).to(dev)
+    on_card = K.demod_batch_packed_fast(xt, cfg, tile=tile, device=dev)
+    on_card = on_card.cpu().numpy()
+    on_cpu = K.demod_batch_packed_fast(xb, cfg, tile=tile,
+                                       device="cpu").numpy()
+    cols = [0, 1, 2, 3, 5, 6, 7, 8]
+    if not np.array_equal(on_card[..., cols], on_cpu[..., cols]):
+        raise AssertionError("f32 first batch: card table != CPU table")
+    np.testing.assert_allclose(on_card[..., :-1, 4].view(np.float32),
+                               on_cpu[..., :-1, 4].view(np.float32),
+                               rtol=1e-5)
+    print(f"f32: first batch table on the card == CPU "
+          f"({int((on_cpu[:, :-1, 0] >= 0).sum())} detections)", flush=True)
+    # the steps the runner dispatches must not wait on the card: any
+    # synchronising call inside them raises in this mode
+    step_b = _batch_step(cfg, dev)
+    step_1 = _default_step(cfg, dev)
+    # the runner stacks a batch straight into page-locked memory, which
+    # the step then copies over with no staging copy
+    hb, owner = _stack_host(list(xb), pinned=True)
+    if not torch.from_numpy(hb).is_pinned():
+        raise AssertionError("the runner's host batch is not page-locked")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step_b(hb, cfg)
+        step_b(xb, cfg)
+        step_b(wire(xb, np.int8), cfg)
+        step_1(xb[0], cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print("f32: the runner's batch steps (B4; int8: B1, B2) and one-block "
+          "step (B3) ran with no host synchronisation", flush=True)
+    step_ms = time_ms(lambda: K.demod_batch_packed_fast(xt, cfg, tile=tile,
+                                                        device=dev),
+                      device_only=False)
+    profile_step(lambda: K.demod_batch_packed_fast(xt, cfg, tile=tile,
+                                                   device=dev), smi)
+    del xt
+
+    stats = BlockStats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    msgs = _messages(run_pipelined(_stream_blocks(cfg, path), cfg,
+                                   batch=BATCH, stats=stats, device=dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"B4": K.DETECT_MASK_ROUTES["B4"]}
+    print(f"f32: launches {dict(K.LAUNCHES)}, routes "
+          f"{dict(K.DETECT_MASK_ROUTES)}", flush=True)
+    if K.LAUNCHES["detect_mask"] <= 0 or launches["B4"] <= 0:
+        raise AssertionError("B4 never launched on the f32 path")
+
+    t0 = time.perf_counter()
+    on_cpu = _messages(run_pipelined(_stream_blocks(cfg, path), cfg,
+                                     batch=BATCH, device="cpu"))
+    if msgs != on_cpu:
+        diff = sorted(set(msgs) ^ set(on_cpu))[:5]
+        raise AssertionError(f"f32 path on the card != on the CPU "
+                             f"({len(msgs)} vs {len(on_cpu)} messages; "
+                             f"e.g. {diff})")
+    print(f"f32: all {len(msgs)} messages of the {N_MAIN_BLOCKS} blocks on "
+          f"the card == on the CPU ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    per_df = decoded_per_df(msgs, truth)
+    print(f"f32: {stats}", flush=True)
+    for df, (d, n) in per_df.items():
+        print(f"f32: df{df} decoded {d}/{n}", flush=True)
+    short = {df: dn for df, dn in per_df.items() if dn[0] < 0.99 * dn[1]}
+    if short:
+        raise AssertionError(f"f32: decode below 99% for DFs {short}")
+    samples = N_MAIN_BLOCKS * cfg.block_size
+    print(f"f32: demod step {step_ms:.4f} ms per batch of {BATCH} blocks "
+          f"= {BATCH * cfg.block_size / step_ms / 1e3:.1f} Msps; end to end "
+          f"{samples / wall / 1e6:.1f} Msps over {N_MAIN_BLOCKS} blocks "
+          f"({wall:.3f} s) [{smi}]", flush=True)
+
+    # batch 1: kernel B3, one block per step
+    K.reset_launches()
+    one = list(run_pipelined(_stream_blocks(cfg, path, 0, 4), cfg, batch=1,
+                             device=dev))
+    launches["B3"] = K.DETECT_MASK_ROUTES["B3"]
+    if launches["B3"] <= 0:
+        raise AssertionError("B3 never launched at batch 1")
+    if one != list(run_pipelined(_stream_blocks(cfg, path, 0, 4), cfg,
+                                 batch=1, device="cpu")):
+        raise AssertionError("batch-1 run on the card != on the CPU")
+    print(f"f32: batch 1 over 4 blocks: {len(_messages(one))} messages == "
+          f"CPU, B3 launches {launches['B3']}", flush=True)
+
+    # two channels of 4 blocks each, one B4 call of C = 2 per step
+    K.reset_launches()
+
+    def chans():
+        return [_stream_blocks(cfg, path, 0, 4),
+                _stream_blocks(cfg, path, 4, 8)]
+    steps = list(run_channels(chans(), cfg, device=dev))
+    if K.DETECT_MASK_ROUTES["B4"] <= 0 or len(steps) != 4:
+        raise AssertionError("run_channels did not run B4 over 4 steps")
+    if steps != list(run_channels(chans(), cfg, device="cpu")):
+        raise AssertionError("run_channels on the card != on the CPU")
+    print(f"f32: run_channels, 2 channels x 4 blocks: "
+          f"{[len(c) for st in steps for c in st]} messages == CPU, B4 "
+          f"launches {K.DETECT_MASK_ROUTES['B4']}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -488,28 +755,46 @@ def main() -> int:
 
     cfg = DspConfig()
     t0 = time.perf_counter()
-    (mi, mq), _ = mixed_capture(cfg, BATCH, seed=0)
-    (di, dq), _ = mixed_capture(cfg, BATCH, snr_db=15.0, seed=2,
-                                spacing=1500)
+    ((mi, mq), mf), _ = mixed_capture(cfg, BATCH, seed=0)
+    ((di, dq), df), _ = mixed_capture(cfg, BATCH, snr_db=15.0, seed=2,
+                                      spacing=1500)
     zeros = np.zeros_like(mi)
+    cfg2 = DspConfig(channel_rate=4e6)
+    ((si, sq), sf), _ = mixed_capture(cfg2, BATCH, seed=4)
     print(f"captures built in {time.perf_counter() - t0:.2f} s", flush=True)
     b1_out, b1_err, b1_t = phase_b1(
         cfg, {"mixed": (mi, mq), "dense": (di, dq), "silence": (zeros, zeros)},
         dev, flush)
     if b1_out["dense"][4] <= 0:
         raise AssertionError("dense input did not overflow K")
-    cfg2 = DspConfig(channel_rate=4e6)
-    (si, sq), _ = mixed_capture(cfg2, BATCH, seed=4)
     b1_out2, err2, _ = phase_b1(cfg2, {"mixed": (si, sq)}, dev, flush)
     b1_err = max(b1_err, err2)
 
     b2_err, b2_t = phase_b2(cfg, {k: b1_out[k] for k in ("mixed", "dense")},
                             flush)
+    b34_in = {"mixed": mf, "dense": df, "silence": np.zeros_like(mf),
+              "mixed[0]": mf[:1], "dense[0]": df[:1],
+              "silence[0]": np.zeros_like(mf[:1]),
+              "mixed int8": wire(mf, np.int8),
+              "mixed int16": wire(mf, np.int16),
+              "mixed[0] int8": wire(mf[:1], np.int8),
+              "mixed[0] int16": wire(mf[:1], np.int16)}
+    b34_out, b34_err, b34_t = phase_b34(cfg, b34_in, dev, flush)
+    b34_out2, err2, _ = phase_b34(cfg2, {"mixed": sf}, dev, flush)
+    b34_err = max(b34_err, err2)
+    del mf, df, sf, b34_in
+
     phase_repeat(cfg, b1_out, dev, REPEAT)
     phase_repeat(cfg2, b1_out2, dev, REPEAT)
+    phase_repeat_b34(cfg, {k: b34_out[k] for k in
+                           ("mixed", "dense", "silence", "mixed[0]",
+                            "dense[0]")}, dev, REPEAT)
+    del b1_out, b1_out2, b34_out, b34_out2
 
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_main(cfg, dev, tmp, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        routes = phase_main_f32(cfg, dev, tmp, smi)
 
     b1_ms, b1_plain, b1_bytes, b1_samples = b1_t
     b1_out_bytes = BATCH * (cfg.block_size // 131072) * 8 * 128 * 4
@@ -538,6 +823,19 @@ def main() -> int:
          "ms": b2_ms, "plain_ms": b2_plain, "bound_ms": b2_bound,
          "bound_by": b2_by, "library_ms": b2_lib},
     ]
+    for C, kid, line in ((1, "B3", 303), (BATCH, "B4", 517)):
+        ms, plain_ms, n_bytes, samples = b34_t[C]
+        mem_s = n_bytes / PEAK_BYTES_S
+        ops_s = samples * b34_ops_per_sample(
+            cfg.sps, cfg.nms_chips * cfg.sps) / PEAK_F32_S
+        kernels.append(
+            {"name": f"detect_mask ({kid}, C={C})", "route": "cuda",
+             "source": "airmodes_torch/kernels/csrc/detect_mask.cu",
+             "replaces": f"airmodes/kernels/preamble_pallas.py:{line}",
+             "launches": routes[kid], "max_abs_err": b34_err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": max(mem_s, ops_s) * 1e3,
+             "bound_by": "bytes" if mem_s >= ops_s else "operations",
+             "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -31,6 +31,8 @@ def test_every_module_is_found():
     for want in ("airmodes_torch.kernels.preamble",
                  "airmodes_torch.kernels._ext",
                  "airmodes_torch.io.native_stream",
+                 "airmodes_torch.io.sources",
+                 "airmodes_torch.io.stream",
                  "airmodes_torch.native",
                  "airmodes_torch.testing.encoder",
                  "airmodes_torch.dsp.pipeline"):

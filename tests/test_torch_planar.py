@@ -21,7 +21,7 @@ from airmodes.kernels import preamble_pallas as JK
 from airmodes.testing import encoder
 from airmodes_torch.config import DspConfig
 from airmodes_torch.dsp import host as thost
-from airmodes_torch.dsp.pipeline import unpack_table
+from airmodes_torch.dsp.pipeline import fma_f32, unpack_table
 from airmodes_torch.kernels import preamble as TK
 
 TILE = 4096
@@ -86,6 +86,62 @@ def test_power_is_single_rounded_fma_for_every_int8_pair():
         for j, xq in enumerate(x):
             want[i, j] = _round_f32(sq + Fraction(float(np.float32(xq * xq))))
     np.testing.assert_array_equal(got, want)
+
+
+def _exact_fma(a, b, c) -> float:
+    v = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    return _round_f32(v) if v >= 0 else -_round_f32(-v)
+
+
+def _tie_cases(n):
+    """(a, b, c) with a*b + c a hair above an f32 tie whose float64 sum
+    rounds onto the tie itself, where rounding twice (to float64, then to
+    f32 ties-to-even) gives the wrong neighbour: a*b = 2^-24 (1 + rho),
+    0 < rho < 2^-29, and c = 1 + k 2^-23 with k even."""
+    out = []
+    for i in range(11863283, 11863283 + 200000):     # A ~ sqrt(2)
+        A = i * 2.0 ** -23
+        j = -(-(2.0 / A - 1.0) // 2.0 ** -23)        # smallest B >= 2/A
+        B = 1.0 + j * 2.0 ** -23
+        rho = Fraction(A) * Fraction(B) / 2 - 1
+        if 0 < rho < Fraction(1, 1 << 29):
+            k = 2 * len(out)
+            out.append((np.float32(A), np.float32(B * 2.0 ** -25),
+                        np.float32(1.0 + k * 2.0 ** -23)))
+            if len(out) == n:
+                return out
+    raise AssertionError("too few tie cases")
+
+
+def test_fma_f32_is_correctly_rounded():
+    """fma_f32 == one rounding of the exact a*b + c, on seeded random f32
+    triples of mixed signs and scales, and on constructed double-rounding
+    ties, where the float64 detour alone rounds the wrong way."""
+    rng = np.random.default_rng(11)
+    n = 3000
+    a = (rng.standard_normal(n) * 2.0 ** rng.integers(-8, 8, n)
+         ).astype(np.float32)
+    b = (rng.standard_normal(n) * 2.0 ** rng.integers(-8, 8, n)
+         ).astype(np.float32)
+    c = (rng.standard_normal(n) * 2.0 ** rng.integers(-20, 4, n)
+         ).astype(np.float32)
+    ties = _tie_cases(16)
+    ta, tb, tc = (np.array(v, np.float32) for v in zip(*ties))
+    naive = (ta.astype(np.float64) * tb + tc).astype(np.float32)
+    want_t = np.array([_exact_fma(*t) for t in ties], np.float32)
+    assert (naive != want_t).all()          # each case defeats the detour
+    a, b, c = (np.concatenate([u, v]) for u, v in ((a, ta), (b, tb), (c, tc)))
+    got = fma_f32(_t(a), _t(b), _t(c)).numpy()
+    want = np.array([_exact_fma(*t) for t in zip(a, b, c)], np.float32)
+    np.testing.assert_array_equal(got, want)
+    # the negated ties round the other way, and a Python-float factor
+    np.testing.assert_array_equal(
+        fma_f32(_t(-ta), _t(tb), _t(-tc)).numpy(), -want_t)
+    fifth = np.float32(0.2)
+    np.testing.assert_array_equal(
+        fma_f32(_t(a), float(fifth), _t(c)).numpy(),
+        np.array([_exact_fma(x, fifth, z) for x, z in zip(a, c)],
+                 np.float32))
 
 
 # --- kernel B1 ---------------------------------------------------------------
@@ -296,23 +352,23 @@ def test_planar_slice_kernel_block_edge():
     assert want_pos <= got, (sorted(got), sorted(want_pos))
 
 
-def test_planar_sps5_matches_reference_to_one_ulp():
-    """At sps=5 every decision equals the reference's; ref_level may differ
-    by one f32 ulp, because XLA on the CPU contracts the chip-energy scale
-    (x 1/5, inexact) into the pulse sum of the decode tail as FMAs while
-    the port rounds each product; the candidate blocks stay bit-equal
-    (test_detect_cands_plain_matches_jax)."""
-    jc, tc = _cfgs(channel_rate=10e6, block_size=1 << 14, max_detections=32)
-    (xi, xq), _ = _planar(jc, seed=95, n_frames=12, snr=16.0, spacing=1300)
+def _odd_sps_tables_equal(rate, seed):
+    """At odd sps the chip-energy scale 1/sps is inexact, and XLA on the
+    CPU contracts it into the tail's pulse sum as FMAs; the port computes
+    the same FMAs, so the tables are equal in every int32 column."""
+    jc, tc = _cfgs(channel_rate=rate, block_size=1 << 14, max_detections=32)
+    (xi, xq), _ = _planar(jc, seed=seed, n_frames=12, snr=16.0, spacing=1300)
     got, want = _packed_pair(jc, tc, xi, xq)
-    cols = [0, 1, 2, 5, 6, 7, 8]
-    np.testing.assert_array_equal(got[..., cols], want[..., cols])
-    np.testing.assert_allclose(got[..., :-1, 3].view(np.float32),
-                               want[..., :-1, 3].view(np.float32),
-                               rtol=2.0 ** -22)
-    np.testing.assert_allclose(got[..., :-1, 4].view(np.float32),
-                               want[..., :-1, 4].view(np.float32), rtol=1e-5)
+    _assert_packed_equal(got, want)
     assert (want[:, :-1, 0] >= 0).sum() > 0
+
+
+def test_planar_sps5_matches_reference():
+    _odd_sps_tables_equal(10e6, 95)
+
+
+def test_planar_sps3_matches_reference():
+    _odd_sps_tables_equal(6e6, 96)
 
 
 def test_planar_geometry_matches_reference():
