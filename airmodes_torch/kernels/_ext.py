@@ -39,7 +39,8 @@ _vp, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 SIGNATURES = {
     "detect_cands": {
         "detect_cands_launch": [_vp, _vp, _vp, _vp, _i, _ll, _i, _i, _i, _i,
-                                _i, _i, _i, _f, _f, _f, _f, _f, _vp],
+                                _i, _i, _i, _i, _i, _i, _f, _f, _f, _f, _f,
+                                _vp],
     },
     "slice_windows": {
         "slice_windows_launch": [_vp, _vp, _vp, _vp, _i, _ll, _i, _i, _f,
@@ -47,7 +48,7 @@ SIGNATURES = {
     },
     "detect_mask": {
         "detect_mask_launch": [_vp, _vp, _vp, _i, _ll, _ll, _ll, _i, _i, _i,
-                               _i, _f, _f, _f, _f, _vp],
+                               _i, _i, _f, _f, _f, _f, _vp],
     },
 }
 

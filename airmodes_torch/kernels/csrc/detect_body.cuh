@@ -1,5 +1,6 @@
 // The preamble rule on one staged chunk, shared by the detect kernels B1
-// (detect_cands.cu) and B3/B4 (detect_mask.cu), for NVIDIA Hopper (sm_90a).
+// and its variants B5o, B5p (detect_cands.cu) and B3/B4 and the 1-D kernel
+// B6 (detect_mask.cu), for NVIDIA Hopper (sm_90a).
 //
 // A CTA owns kChunk = 4096 consecutive samples of one channel and stages
 // their power m in shared memory with kLookback = 256 samples before them
@@ -16,8 +17,23 @@
 //   positions u = 256 - half .. 256 + kChunk + half - 1, then non-max
 //   suppression over +-half samples: keep[s] for owned sample s.
 // The reference level is ref_at(): (((p0 + p1) + p2) + p3) * 0.25, where
-// at sps > 1 the reference (XLA on the CPU) contracts pulse 0's chip-energy
-// scale into the first add, fma(acc0, 1/sps, p1).
+// at sps > 1 the reference (XLA on the CPU) contracts chip-energy scales
+// into the adds, in one of two forms: in its 2-D kernels (B1, B3, B4, B5)
+// pulse 0's only, fma(S0, 1/sps, p1); in its 1-D kernel (B6, kChain) all
+// but pulse 1's, fma(S3, s, fma(S2, s, fma(S0, s, S1*s))), S the chip sums.
+// Maxima and minima: the reference's jnp.maximum and jnp.minimum propagate
+// NaN, so a NaN power in a test's reach fails the test. With kNan the rule
+// does the same (max_nan, min_nan); without, it takes fmaxf and fminf,
+// which are equal where every term is finite. The callers pick kNan per
+// chunk: int8 powers are at most 2, and f32 chunks whose staged powers are
+// all below 1e30 keep every term finite (sums of at most a few hundred of
+// them, times positive constants), so only a chunk holding a NaN, an Inf
+// or a huge power takes the slower form.
+//
+// kPrescreen (B5p) swaps the rule for the reference's stage-A prescreen:
+// the peak test, the all-pulse threshold (the caller passes the slack
+// threshold) and tolerance, the quiet chips {1, 3..6}, at the owned
+// samples only, with no NMS.
 
 #pragma once
 
@@ -65,6 +81,14 @@ inline int smem_bytes(const Rule& r) {
          test_len(r) + kChunk;
 }
 
+__device__ inline float max_nan(float a, float b) {
+  return (isnan(a) || isnan(b)) ? __int_as_float(0x7fffffff) : fmaxf(a, b);
+}
+
+__device__ inline float min_nan(float a, float b) {
+  return (isnan(a) || isnan(b)) ? __int_as_float(0x7fffffff) : fminf(a, b);
+}
+
 __device__ inline Smem carve(float* base, const Rule& r) {
   Smem s;
   const int len = staged_len(r);
@@ -77,28 +101,96 @@ __device__ inline Smem carve(float* base, const Rule& r) {
   return s;
 }
 
-// Reference level at staged position u (see the note at the top).
-__device__ inline float ref_at(const float* m, const float* ce, int u,
-                               const Rule& r) {
+// Chip sum ((m[v] + m[v+1]) + ...) + m[v+sps-1].
+__device__ inline float chip_sum(const float* m, int v, int sps) {
+  float acc = m[v];
+  for (int s = 1; s < sps; ++s) acc = __fadd_rn(acc, m[v + s]);
+  return acc;
+}
+
+// Reference level at staged position u (see the note at the top), from
+// the four pulses' chip energies p0..p3 the caller has loaded (ce at u,
+// u + 2sps, u + 7sps, u + 9sps) and, at sps > 1, their chip sums from m.
+template <bool kChain>
+__device__ inline float ref_at(const float* m, float p0, float p1, float p2,
+                               float p3, int u, const Rule& r) {
   const int sps = r.sps;
-  const float p1 = ce[u + 2 * sps];
-  const float p2 = ce[u + 7 * sps];
-  const float p3 = ce[u + 9 * sps];
-  float first;
-  if (sps > 1) {
-    float acc0 = m[u];
-    for (int s = 1; s < sps; ++s) acc0 = __fadd_rn(acc0, m[u + s]);
-    first = __fmaf_rn(acc0, r.inv_sps, p1);
-  } else {
-    first = __fadd_rn(ce[u], p1);
+  const float s = r.inv_sps;
+  if (kChain && sps > 1) {
+    float x = __fmaf_rn(chip_sum(m, u, sps), s,
+                        __fmul_rn(chip_sum(m, u + 2 * sps, sps), s));
+    x = __fmaf_rn(chip_sum(m, u + 7 * sps, sps), s, x);
+    x = __fmaf_rn(chip_sum(m, u + 9 * sps, sps), s, x);
+    return __fmul_rn(x, 0.25f);
   }
+  const float first =
+      sps > 1 ? __fmaf_rn(chip_sum(m, u, sps), s, p1) : __fadd_rn(p0, p1);
   return __fmul_rn(__fadd_rn(__fadd_rn(first, p2), p3), 0.25f);
 }
 
+// ref_at with the pulses loaded from the chip-energy array ce.
+template <bool kChain>
+__device__ inline float ref_at(const float* m, const float* ce, int u,
+                               const Rule& r) {
+  const int sps = r.sps;
+  return ref_at<kChain>(m, ce[u], ce[u + 2 * sps], ce[u + 7 * sps],
+                        ce[u + 9 * sps], u, r);
+}
+
+// Largest staged power for which a chunk may take the rule without kNan.
+constexpr float kFinitePower = 1e30f;
+
+template <bool kNan>
+__device__ inline float vmax(float a, float b) {
+  return kNan ? max_nan(a, b) : fmaxf(a, b);
+}
+
+template <bool kNan>
+__device__ inline float vmin(float a, float b) {
+  return kNan ? min_nan(a, b) : fminf(a, b);
+}
+
+// The rule's test at staged position u, without the NMS: the peak test,
+// the pulse threshold and tolerance, and the quiet chips (all twelve, or
+// with kPrescreen the early five). Returns ok and sets *ref.
+template <bool kPrescreen, bool kChain, bool kNan>
+__device__ inline bool test_at(const float* m, const float* ce,
+                               const float* ws, int u, const Rule& r,
+                               float* ref_out) {
+  const int sps = r.sps;
+  const float p0 = ce[u];
+  const float p1 = ce[u + 2 * sps];
+  const float p2 = ce[u + 7 * sps];
+  const float p3 = ce[u + 9 * sps];
+  const float ref = ref_at<kChain>(m, p0, p1, p2, p3, u, r);
+  *ref_out = ref;
+  const float nf = __fmul_rn(ws[u - 128], 0.0078125f);
+  bool ok = (p0 >= ce[u - 1]) && (p0 > ce[u + 1]);
+  const float pmin = vmin<kNan>(vmin<kNan>(p0, p1), vmin<kNan>(p2, p3));
+  ok = ok && (pmin > vmax<kNan>(__fmul_rn(nf, r.thresh),
+                                __fmul_rn(ref, r.ptol)));
+  float quiet = ce[u + 1 * sps];
+  quiet = vmax<kNan>(quiet, ce[u + 3 * sps]);
+  quiet = vmax<kNan>(quiet, ce[u + 4 * sps]);
+  quiet = vmax<kNan>(quiet, ce[u + 5 * sps]);
+  quiet = vmax<kNan>(quiet, ce[u + 6 * sps]);
+  if (!kPrescreen) {
+    quiet = vmax<kNan>(quiet, ce[u + 8 * sps]);
+    quiet = vmax<kNan>(quiet, ce[u + 10 * sps]);
+    quiet = vmax<kNan>(quiet, ce[u + 11 * sps]);
+    quiet = vmax<kNan>(quiet, ce[u + 12 * sps]);
+    quiet = vmax<kNan>(quiet, ce[u + 13 * sps]);
+    quiet = vmax<kNan>(quiet, ce[u + 14 * sps]);
+    quiet = vmax<kNan>(quiet, ce[u + 15 * sps]);
+  }
+  return ok && (quiet < __fmul_rn(ref, r.qtol));
+}
+
 // After the caller has staged s.m[0, len) and synchronised: the fold, the
-// chip energies, the tests and the NMS. Leaves keep[] for the chunk's
-// owned samples and returns the chip-energy array (s.m at sps 1, else
-// s.sb), all visible to every thread of the CTA.
+// chip energies, the tests and (but for kPrescreen) the NMS. Leaves keep[]
+// for the chunk's owned samples and returns the chip-energy array (s.m at
+// sps 1, else s.sb), all visible to every thread of the CTA.
+template <bool kPrescreen, bool kChain, bool kNan>
 __device__ inline const float* detect_chunk(const Smem& s, const Rule& r) {
   const int len = staged_len(r);
   const int nt = test_len(r);
@@ -124,47 +216,37 @@ __device__ inline const float* detect_chunk(const Smem& s, const Rule& r) {
   const float* ce = s.m;
   if (sps > 1) {
     const int nce = len - sps + 1;
-    for (int v = threadIdx.x; v < nce; v += kThreads) {
-      float acc = s.m[v];
-      for (int k = 1; k < sps; ++k) acc = __fadd_rn(acc, s.m[v + k]);
-      s.sb[v] = __fmul_rn(acc, r.inv_sps);
-    }
+    for (int v = threadIdx.x; v < nce; v += kThreads)
+      s.sb[v] = __fmul_rn(chip_sum(s.m, v, sps), r.inv_sps);
     __syncthreads();
     ce = s.sb;
   }
 
+  if (kPrescreen) {
+    // the owned samples only, no NMS
+    for (int k = threadIdx.x; k < kChunk; k += kThreads) {
+      float ref;
+      s.keep[k] =
+          test_at<true, kChain, kNan>(s.m, ce, ws, kLookback + k, r, &ref);
+    }
+    __syncthreads();
+    return ce;
+  }
+
   // preamble tests at test positions u = 256 - half + i, i in [0, nt)
   for (int i = threadIdx.x; i < nt; i += kThreads) {
-    const int u = kLookback - r.half + i;
-    const float p0 = ce[u];
-    const float p1 = ce[u + 2 * sps];
-    const float p2 = ce[u + 7 * sps];
-    const float p3 = ce[u + 9 * sps];
-    const float ref = ref_at(s.m, ce, u, r);
-    const float nf = __fmul_rn(ws[u - 128], 0.0078125f);
-    bool ok = (p0 >= ce[u - 1]) && (p0 > ce[u + 1]);
-    const float pmin = fminf(fminf(p0, p1), fminf(p2, p3));
-    ok = ok && (pmin > fmaxf(__fmul_rn(nf, r.thresh), __fmul_rn(ref, r.ptol)));
-    float quiet = ce[u + 1 * sps];
-    quiet = fmaxf(quiet, ce[u + 3 * sps]);
-    quiet = fmaxf(quiet, ce[u + 4 * sps]);
-    quiet = fmaxf(quiet, ce[u + 5 * sps]);
-    quiet = fmaxf(quiet, ce[u + 6 * sps]);
-    quiet = fmaxf(quiet, ce[u + 8 * sps]);
-    quiet = fmaxf(quiet, ce[u + 10 * sps]);
-    quiet = fmaxf(quiet, ce[u + 11 * sps]);
-    quiet = fmaxf(quiet, ce[u + 12 * sps]);
-    quiet = fmaxf(quiet, ce[u + 13 * sps]);
-    quiet = fmaxf(quiet, ce[u + 14 * sps]);
-    quiet = fmaxf(quiet, ce[u + 15 * sps]);
-    ok = ok && (quiet < __fmul_rn(ref, r.qtol));
+    float ref;
+    const bool ok = test_at<false, kChain, kNan>(s.m, ce, ws,
+                                                 kLookback - r.half + i, r,
+                                                 &ref);
     s.score[i] = ok ? ref : 0.f;
     s.okf[i] = ok ? 1 : 0;
   }
   __syncthreads();
 
   // NMS: strictly above every score in the half samples before, at least
-  // every score in the half samples after
+  // every score in the half samples after (scores are never NaN: a NaN
+  // reference level fails the tests)
   for (int k = threadIdx.x; k < kChunk; k += kThreads) {
     const int i = r.half + k;
     float left = 0.f, right = 0.f;

@@ -1,19 +1,27 @@
-"""The demod paths with hand kernels: the planar int8 path (kernels B1, B2)
-and the f32 fast path (kernels B3, B4), with the torch code between and
-after them.
+"""The demod paths with hand kernels: the planar int8 path (kernels B1, B2
+and B1's variants B5o, B5p), the f32 fast path (kernels B3, B4) and the
+1-D f32 path (kernel B6), with the torch code between and after them.
 
 The counterpart of `airmodes/kernels/preamble_pallas.py`.
 
 Planar int8 path: the host ships each channel's block as two planar int8
 rows (I and Q) of `planar_length(cfg)` samples: `left_halo` samples of
 history, the owned block, the right halo and a zero margin. Then, per batch
-of C channels:
+of C channels (`demod_batch_planar` and its options):
 
   B1 `preamble_detect_cands_planar`  (C, P) int8 x2 -> (C, tiles, 8, 128)
      per-lane candidate blocks (first 4 hits per tile lane column + counts)
   `compact_candidates_unordered`     -> the earliest K detections, counts
   B2 `slice_windows_planar`          -> one f32 power window per detection
   `_tail_from_power`                 -> bits, confidence, CRC/ECC, table
+
+  ordered=True: B5o, the same kernel emitting each tile's earliest
+     `per_tile` hits in ascending order, read by `compact_candidates`;
+  prescreen=True: B5p, the kernel with a cheaper rule (no NMS, no late
+     quiet chips), K2 candidate windows from B2, the full rule on them
+     (`_stageb_full_check`), the earliest K winners;
+  xla_gather=True: a torch gather of the windows (`gather_tail_planar`)
+     in place of B2.
 
 f32 fast path, on framed (L+N+R, 2) blocks of f32 (or int8/int16) I/Q:
 
@@ -22,6 +30,13 @@ f32 fast path, on framed (L+N+R, 2) blocks of f32 (or int8/int16) I/Q:
   `dsp.pipeline.compact_detections`  -> the earliest K detections, counts
   `gather_tail`                      -> one power window per detection,
                                         then `_tail_from_power`
+
+1-D path (`demod_block_1d`, `demod_batch_1d`), at any sps:
+
+  B6 `preamble_detect_1d` or `preamble_detect_1d_batch`
+                                     -> keep mask and ref per owned sample
+  `_full_tail`                       -> full-block power and noise floor,
+                                        compaction, bits, CRC/ECC, table
 
 Each kernel wrapper launches its hand-written CUDA kernel (csrc/) when its
 inputs are CUDA tensors, and runs the plain PyTorch version beside it only
@@ -32,15 +47,17 @@ values bit for bit, including the FMAs that XLA on the CPU contracts: power
 as fma(xi, xi, xq*xq), the trailing noise sum by the log-doubling fold,
 chip energies as ((m0 + m1) + ...) * (1/sps), and the reference level as
 (((p0 + p1) + p2) + p3) * 0.25 with, at sps > 1, pulse 0's chip-energy
-scale contracted into the first add in the detect kernels
-(`_ref_detect`) and every scale but pulse 1's in the decode tail
-(`_ref_chain`). The reference may take the noise sum as two matmuls
-instead (`mxu_window_sum`, "decision-equivalent", airmodes/config.py); the
-port always folds.
+scale contracted into the first add in the 2-D detect kernels B1, B3, B4
+and B5 (`_ref_detect`) and every scale but pulse 1's in the 1-D kernel
+B6, the stage-B rescan and the decode tail (`dsp.pipeline.ref_chain`).
+The reference may take the noise sum as two matmuls instead
+(`mxu_window_sum`, "decision-equivalent", airmodes/config.py); the port
+always folds.
 """
 
 from __future__ import annotations
 
+import dataclasses
 
 import numpy as np
 import torch
@@ -56,18 +73,24 @@ _HALO_ROWS_I8 = 30                         # rows_w = trows + 32
 CAND_PER_LANE = 4
 CAND_ROWS = 8
 _COUNT_ROW = 4                             # per-lane hit counts live here
+_MAX_PER_LANE = 8                          # hits per lane the kernel keeps
 DEFAULT_NBUF = 2
 _CHUNK = 4096                              # owned samples per B1 CUDA block
+_EARLY_QUIET_CHIPS = (1, 3, 4, 5, 6)       # the quiet chips B5p tests
 
 # kernel launches since the last reset_launches(), per wrapper; only the
 # CUDA paths count
 LAUNCHES = {"detect_cands": 0, "slice_windows": 0, "detect_mask": 0}
-# detect_mask launches by route: B3 (one block) and B4 (a batch of C > 1)
-DETECT_MASK_ROUTES = {"B3": 0, "B4": 0}
+# detect_cands launches by variant: B1 (unordered), B5o (ordered=True) and
+# B5p (prescreen=True)
+DETECT_CANDS_ROUTES = {"B1": 0, "B5o": 0, "B5p": 0}
+# detect_mask launches by route: B3 (one block), B4 (a batch of C > 1), and
+# the 1-D kernel B6 on one block ("B6") or a batch ("B6 batch")
+DETECT_MASK_ROUTES = {"B3": 0, "B4": 0, "B6": 0, "B6 batch": 0}
 
 
 def reset_launches() -> None:
-    for d in (LAUNCHES, DETECT_MASK_ROUTES):
+    for d in (LAUNCHES, DETECT_CANDS_ROUTES, DETECT_MASK_ROUTES):
         for k in d:
             d[k] = 0
 
@@ -115,10 +138,25 @@ def cand_capacity(tile: int):
     return per_tile, per_lane
 
 
-def _per_lane(tile: int) -> int:
-    """Hits kept per (tile, lane column): the unordered candidate layout
-    caps the capacity at its 4 hit rows."""
-    return min(cand_capacity(tile)[1], _COUNT_ROW)
+def _cand_params(tile: int, ordered: bool, per_tile=None, per_lane=None):
+    """(per_tile, per_lane) of a candidate layout: cand_capacity's values
+    where not given, per_lane clamped to the 4 hit rows of the unordered
+    layout, as the reference does. The kernel keeps at most 8 hits per
+    lane column (the most cand_capacity gives) and the ordered rows 0..3
+    hold at most 512 hits; beyond either it raises."""
+    pt, pl = cand_capacity(tile)
+    per_tile = pt if per_tile is None else int(per_tile)
+    per_lane = pl if per_lane is None else int(per_lane)
+    if not ordered:
+        per_lane = min(per_lane, _COUNT_ROW)
+    if not 1 <= per_lane <= _MAX_PER_LANE:
+        raise ValueError(f"per_lane must be in [1, {_MAX_PER_LANE}], the "
+                         f"hits per lane column the candidate kernel keeps; "
+                         f"got {per_lane}")
+    if ordered and not 1 <= per_tile <= _COUNT_ROW * 128:
+        raise ValueError(f"per_tile must be in [1, {_COUNT_ROW * 128}] "
+                         f"(rows 0..3 of the ordered layout); got {per_tile}")
+    return per_tile, per_lane
 
 
 def _slice_geometry(cfg: DspConfig, extra: int = 0):
@@ -185,11 +223,11 @@ def power_i8(xi8: torch.Tensor, xq8: torch.Tensor) -> torch.Tensor:
     return (fi64 * fi64 + (fq * fq).to(torch.float64)).to(torch.float32)
 
 
-# --- the preamble rule, shared by kernels B1, B3 and B4 ----------------------
+# --- the preamble rule, shared by kernels B1, B3, B4, B5 and B6 -------------
 
 def _ref_detect(acc0, p0, p1, p2, p3, sps: int):
-    """Reference level of the detect kernels, as the reference computes it
-    on the CPU: (((p0 + p1) + p2) + p3) * 0.25, where at sps > 1 XLA
+    """Reference level of the 2-D detect kernels, as the reference computes
+    it on the CPU: (((p0 + p1) + p2) + p3) * 0.25, where at sps > 1 XLA
     contracts the chip-energy scale of pulse 0 (acc0 * 1/sps) into the
     first add; pulses 1-3 arrive through the kernel's lane shifts and are
     not contracted."""
@@ -201,38 +239,56 @@ def _ref_detect(acc0, p0, p1, p2, p3, sps: int):
     return ((first + p2) + p3) * 0.25
 
 
-def _detect_plain(m: torch.Tensor, cfg: DspConfig):
-    """The detect kernels' rule on (C, >= 256 + N + halo) f32 power rows,
-    owned sample d at column d + 256 -> (keep bool (C, N), ref f32 (C, N))
-    over the owned samples. The decision does not depend on the tile."""
+def _prescreen_threshold(cfg: DspConfig) -> float:
+    """B5p's threshold: f32(threshold) * f32(1 - 1e-5), one f32 product as
+    the reference rounds it."""
+    return _f32(np.float32(cfg.threshold) * np.float32(1.0 - 1e-5))
+
+
+def _rule_ok(m: torch.Tensor, cfg: DspConfig, x0: int, nt: int,
+             thresh: float, quiet_chips, chain: bool = False):
+    """The preamble test without NMS on (..., L) f32 power rows at the nt
+    test positions from column x0 (a test at column x reads the noise sum
+    of m[x-128:x]) -> (ok bool, ref f32), each (..., nt): the peak test,
+    the all-pulse threshold and tolerance, the quiet chips given. `chain`
+    picks the reference level's form: `ref_chain` (1-D kernel, stage B),
+    else `_ref_detect` (the 2-D kernels)."""
     sps = cfg.sps
-    half = cfg.nms_chips * sps
-    n = cfg.block_size
     ws = m
     for s in (1, 2, 4, 8, 16, 32, 64):                  # ws[y] = sum m[y:y+128]
-        ws = ws[:, :-s] + ws[:, s:]
+        ws = ws[..., :-s] + ws[..., s:]
     acc = P.chip_sums(m, sps) if sps > 1 else m
     ce = acc * _f32(1.0 / sps) if sps > 1 else m
 
-    x0 = _LOOKBACK - half                               # first test sample
-    nt = n + 2 * half
-
     def at(arr, off):
-        return arr[:, x0 + off: x0 + off + nt]
+        return arr[..., x0 + off: x0 + off + nt]
 
     p0, p1, p2, p3 = (at(ce, c * sps) for c in PREAMBLE_PULSE_CHIPS)
-    ref = _ref_detect(at(acc, 0), p0, p1, p2, p3, sps)
+    if chain:
+        ref = P.ref_chain([at(acc, c * sps) for c in PREAMBLE_PULSE_CHIPS],
+                          sps)
+    else:
+        ref = _ref_detect(at(acc, 0), p0, p1, p2, p3, sps)
     nf = at(ws, -128) * (1.0 / 128.0)
     ok = (p0 >= at(ce, -1)) & (p0 > at(ce, 1))
     pmin = torch.minimum(torch.minimum(p0, p1), torch.minimum(p2, p3))
-    ok &= pmin > torch.maximum(nf * _f32(cfg.threshold),
-                               ref * _f32(cfg.pulse_tolerance))
-    quiet = at(ce, PREAMBLE_QUIET_CHIPS[0] * sps)
-    for q in PREAMBLE_QUIET_CHIPS[1:]:
+    ok &= pmin > torch.maximum(nf * thresh, ref * _f32(cfg.pulse_tolerance))
+    quiet = at(ce, quiet_chips[0] * sps)
+    for q in quiet_chips[1:]:
         quiet = torch.maximum(quiet, at(ce, q * sps))
     ok &= quiet < ref * _f32(cfg.quiet_tolerance)
-    score = torch.where(ok, ref, 0.0)
+    return ok, ref
 
+
+def _detect_plain(m: torch.Tensor, cfg: DspConfig, chain: bool = False):
+    """The detect kernels' rule on (C, >= 256 + N + halo) f32 power rows,
+    owned sample d at column d + 256 -> (keep bool (C, N), ref f32 (C, N))
+    over the owned samples. The decision does not depend on the tile."""
+    half = cfg.nms_chips * cfg.sps
+    n = cfg.block_size
+    ok, ref = _rule_ok(m, cfg, _LOOKBACK - half, n + 2 * half,
+                       _f32(cfg.threshold), PREAMBLE_QUIET_CHIPS, chain)
+    score = torch.where(ok, ref, 0.0)
     own = score[:, half: half + n]
     left = torch.zeros_like(own)
     right = torch.zeros_like(own)
@@ -243,14 +299,25 @@ def _detect_plain(m: torch.Tensor, cfg: DspConfig):
     return keep, ref[:, half: half + n]
 
 
-# --- kernel B1: detect + per-lane candidate extraction -----------------------
+def _prescreen_plain(m: torch.Tensor, cfg: DspConfig) -> torch.Tensor:
+    """B5p's stage-A rule on (C, >= 256 + N + halo) f32 power rows -> keep
+    bool (C, N) over the owned samples: the peak test, the all-pulse
+    threshold (with the reference's 1e-5 slack) and tolerance, the early
+    quiet chips {1, 3..6}; no NMS. It accepts every sample the full rule
+    keeps, and more."""
+    ok, _ = _rule_ok(m, cfg, _LOOKBACK, cfg.block_size,
+                     _prescreen_threshold(cfg), _EARLY_QUIET_CHIPS)
+    return ok
 
 
-def _extract_plain(keep: torch.Tensor, tile: int,
-                   per_lane: int) -> torch.Tensor:
-    """(C, N) bool -> (C, tiles, 8, 128) int32 candidate blocks: rows
-    0..per_lane-1 the first hits of each lane column (r*128 + lane,
-    ascending, sentinel trows*128), row 4 the per-lane counts."""
+# --- kernel B1 and its variants B5o, B5p: detect + candidate extraction -----
+
+
+def _perlane_plain(keep: torch.Tensor, tile: int, per_lane: int):
+    """(C, N) bool -> (first hits (C, tiles, per_lane, 128) int32, counts
+    (C, tiles, 128) int32): each lane column's first per_lane hits of a
+    tile, encoded r*128 + lane in ascending order (sentinel trows*128), and
+    its hit count."""
     C, n = keep.shape
     trows = tile // 128
     k = keep.reshape(C, n // tile, trows, 128)
@@ -258,86 +325,150 @@ def _extract_plain(keep: torch.Tensor, tile: int,
     rowidx = torch.arange(trows, dtype=torch.int32, device=dev)[:, None]
     cand = torch.where(k, rowidx, trows)
     lane = torch.arange(128, dtype=torch.int32, device=dev)
-    out = torch.zeros((C, n // tile, CAND_ROWS, 128), dtype=torch.int32,
-                      device=dev)
-    out[:, :, :_COUNT_ROW, :] = trows * 128
-    for j in range(per_lane):
+    rows = []
+    for _ in range(per_lane):
         cj = cand.min(dim=2).values                     # (C, tiles, 128)
-        out[:, :, j, :] = torch.where(cj < trows, cj * 128 + lane,
-                                      trows * 128)
+        rows.append(torch.where(cj < trows, cj * 128 + lane, trows * 128))
         cand = torch.where(cand == cj[:, :, None, :], trows, cand)
-    out[:, :, _COUNT_ROW, :] = k.sum(dim=2, dtype=torch.int32)
-    return out
+    return torch.stack(rows, dim=2), k.sum(dim=2, dtype=torch.int32)
+
+
+def _cand_block(first: torch.Tensor, count: torch.Tensor,
+                tile: int) -> torch.Tensor:
+    """(C, tiles, 8, 128) candidate blocks: `first` (C, tiles, n) in the
+    flat positions of rows 0..3, the sentinel trows*128 past it, the
+    counts in row 4, zeros in rows 5..7."""
+    C, tiles = count.shape[:2]
+    out = torch.zeros((C, tiles, CAND_ROWS * 128), dtype=torch.int32,
+                      device=count.device)
+    out[..., :_COUNT_ROW * 128] = (tile // 128) * 128
+    out[..., :first.shape[-1]] = first
+    out[..., _COUNT_ROW * 128: (_COUNT_ROW + 1) * 128] = count
+    return out.reshape(C, tiles, CAND_ROWS, 128)
+
+
+def _extract_plain(keep: torch.Tensor, tile: int,
+                   per_lane: int) -> torch.Tensor:
+    """(C, N) bool -> (C, tiles, 8, 128) int32 unordered candidate blocks:
+    rows 0..per_lane-1 the first hits of each lane column (r*128 + lane,
+    ascending, sentinel trows*128), row 4 the per-lane counts."""
+    e, count = _perlane_plain(keep, tile, per_lane)
+    return _cand_block(e.flatten(2), count, tile)
+
+
+def _extract_ordered_plain(keep: torch.Tensor, tile: int, per_tile: int,
+                           per_lane: int) -> torch.Tensor:
+    """(C, N) bool -> (C, tiles, 8, 128) int32 ordered candidate blocks
+    (`_extract_cands`): of each lane column's first per_lane hits, the
+    tile's earliest per_tile in ascending order at flat positions 0.. of
+    rows 0..3, the sentinel past them, row 4 the per-lane counts."""
+    e, count = _perlane_plain(keep, tile, per_lane)
+    first = torch.sort(e.flatten(2), dim=-1).values[..., :per_tile]
+    return _cand_block(first, count, tile)
 
 
 def detect_cands_plain(xi8: torch.Tensor, xq8: torch.Tensor, cfg: DspConfig,
-                       tile: int) -> torch.Tensor:
-    """Plain PyTorch version of kernel B1 (same inputs, same output)."""
-    keep, _ = _detect_plain(power_i8(xi8, xq8), cfg)
-    return _extract_plain(keep, tile, _per_lane(tile))
+                       tile: int, ordered: bool = False,
+                       prescreen: bool = False, per_tile: int = None,
+                       per_lane: int = None) -> torch.Tensor:
+    """Plain PyTorch version of kernels B1, B5o (ordered) and B5p
+    (prescreen), which may combine as in the reference: same inputs, same
+    output."""
+    per_tile, per_lane = _cand_params(tile, ordered, per_tile, per_lane)
+    m = power_i8(xi8, xq8)
+    keep = _prescreen_plain(m, cfg) if prescreen else _detect_plain(m, cfg)[0]
+    if ordered:
+        return _extract_ordered_plain(keep, tile, per_tile, per_lane)
+    return _extract_plain(keep, tile, per_lane)
 
 
-def _detect_rhalo(cfg: DspConfig) -> int:
-    """Samples the detect kernels' CUDA blocks (B1, B3/B4) stage after
-    their chunk: the NMS window plus the 16 chips of the preamble test,
-    rounded up to 32."""
-    need = cfg.nms_chips * cfg.sps + 16 * cfg.sps
+def _detect_rhalo(cfg: DspConfig, prescreen: bool = False) -> int:
+    """Samples the detect kernels' CUDA blocks (B1, B3/B4, B5, B6) stage
+    after their chunk: the 16 chips of the preamble test and, but for B5p,
+    which has no NMS, the NMS window, rounded up to 32."""
+    need = (0 if prescreen else cfg.nms_chips * cfg.sps) + 16 * cfg.sps
     return -(-need // 32) * 32
 
 
-def detect_cands_buffers(C: int, cfg: DspConfig, tile: int):
-    """Shapes of the B1 CUDA launch's buffers: (per-chunk scratch, output)."""
+def detect_cands_buffers(C: int, cfg: DspConfig, tile: int,
+                         ordered: bool = False):
+    """Shapes of the B1/B5 CUDA launch's buffers: (per-chunk scratch: each
+    lane's first 4 hits, 8 for the ordered layout, and its count;
+    output)."""
     tiles = cfg.block_size // tile
-    return (C * tiles * (tile // _CHUNK), 5, 128), (C, tiles, CAND_ROWS, 128)
+    rows = (_MAX_PER_LANE if ordered else _COUNT_ROW) + 1
+    return ((C * tiles * (tile // _CHUNK), rows, 128),
+            (C, tiles, CAND_ROWS, 128))
 
 
-def _detect_cands_cuda(xi8, xq8, cfg, tile):
-    s_shape, o_shape = detect_cands_buffers(xi8.shape[0], cfg, tile)
+def _detect_cands_cuda(xi8, xq8, cfg, tile, ordered, prescreen, per_tile,
+                       per_lane):
+    s_shape, o_shape = detect_cands_buffers(xi8.shape[0], cfg, tile,
+                                            ordered)
     scratch = torch.empty(s_shape, dtype=torch.int32, device=xi8.device)
     out = torch.empty(o_shape, dtype=torch.int32, device=xi8.device)
-    launch_detect_cands(xi8, xq8, cfg, tile, scratch, out)
+    launch_detect_cands(xi8, xq8, cfg, tile, scratch, out, ordered=ordered,
+                        prescreen=prescreen, per_tile=per_tile,
+                        per_lane=per_lane)
     return out
 
 
-def launch_detect_cands(xi8, xq8, cfg, tile, scratch, out) -> None:
-    """Launch B1 on contiguous CUDA inputs into the given contiguous int32
-    buffers (shapes from `detect_cands_buffers`); every element of both is
-    written."""
+def launch_detect_cands(xi8, xq8, cfg, tile, scratch, out,
+                        ordered: bool = False, prescreen: bool = False,
+                        per_tile: int = None, per_lane: int = None) -> None:
+    """Launch B1 (or B5o with ordered, B5p with prescreen) on contiguous
+    CUDA inputs into the given contiguous int32 buffers (shapes from
+    `detect_cands_buffers` with the same `ordered`); every element of both
+    is written."""
     from . import _ext
+    per_tile, per_lane = _cand_params(tile, ordered, per_tile, per_lane)
     C, p = xi8.shape
     tiles = cfg.block_size // tile
     nchunk = tile // _CHUNK
     half = cfg.nms_chips * cfg.sps
-    rhalo = _detect_rhalo(cfg)
+    rhalo = _detect_rhalo(cfg, prescreen)
     # the last chunk stages up to planar sample block_size + 256 + rhalo
     if cfg.block_size + _LOOKBACK + rhalo > p:
         raise ValueError("planar rows too short for the detect kernel")
     if (tuple(scratch.shape), tuple(out.shape)) != \
-            detect_cands_buffers(C, cfg, tile) \
+            detect_cands_buffers(C, cfg, tile, ordered) \
             or not (scratch.is_contiguous() and out.is_contiguous()):
         raise ValueError("B1 buffers of the wrong shape or not contiguous")
+    thresh = _prescreen_threshold(cfg) if prescreen else _f32(cfg.threshold)
     lib = _ext.lib("detect_cands")
     with torch.cuda.device(xi8.device):
         rc = lib.detect_cands_launch(
             xi8.data_ptr(), xq8.data_ptr(), scratch.data_ptr(),
-            out.data_ptr(), C, p, tile, tiles, nchunk, _per_lane(tile),
-            cfg.sps,
-            half, rhalo, _f32(1.0 / 127.0), _f32(cfg.threshold),
-            _f32(cfg.pulse_tolerance), _f32(cfg.quiet_tolerance),
-            _f32(1.0 / cfg.sps),
+            out.data_ptr(), C, p, tile, tiles, nchunk, per_lane, per_tile,
+            int(ordered), int(prescreen), cfg.sps, half, rhalo,
+            _f32(1.0 / 127.0), thresh, _f32(cfg.pulse_tolerance),
+            _f32(cfg.quiet_tolerance), _f32(1.0 / cfg.sps),
             torch.cuda.current_stream(xi8.device).cuda_stream)
     _ext.check(rc, "detect_cands")
     LAUNCHES["detect_cands"] += 1
+    DETECT_CANDS_ROUTES["B5p" if prescreen else
+                        "B5o" if ordered else "B1"] += 1
 
 
 def preamble_detect_cands_planar(xi8: torch.Tensor, xq8: torch.Tensor,
                                  cfg: DspConfig, tile: int = None,
-                                 nbuf: int = DEFAULT_NBUF) -> torch.Tensor:
+                                 nbuf: int = DEFAULT_NBUF, *,
+                                 double_buffer: bool = False,
+                                 per_tile: int = None, per_lane: int = None,
+                                 ordered: bool = False,
+                                 prescreen: bool = False) -> torch.Tensor:
     """Kernel B1: (C, P) int8 planar I/Q (P = planar_length(cfg, tile)) ->
-    (C, tiles, 8, 128) int32 unordered candidate blocks.
+    (C, tiles, 8, 128) int32 candidate blocks.
 
-    `nbuf` is the reference's TPU prefetch depth; it changes nothing in
-    the result, and the CUDA kernel has one form for every value."""
+    ordered=False (the port's default, the production layout; the
+    reference's default is True): each lane column's first per_lane (<= 4)
+    hits in rows 0..per_lane-1. ordered=True (B5o): the tile's earliest
+    per_tile (<= 512) hits, ascending, in rows 0..3, taken from each lane
+    column's first per_lane (<= 8). prescreen=True (B5p): the stage-A rule
+    (`_prescreen_plain`) in place of the full rule. Row 4 holds the
+    per-lane hit counts. `nbuf` and `double_buffer` are the reference's
+    TPU prefetch depth; they change nothing in the result, and the CUDA
+    kernel has one form for every value."""
     if tile is None:
         tile = default_tile(cfg)
     _check_limits(cfg)
@@ -345,6 +476,7 @@ def preamble_detect_cands_planar(xi8: torch.Tensor, xq8: torch.Tensor,
         raise ValueError(f"nbuf must be >= 1, got {nbuf}")
     if cfg.block_size % tile:
         raise ValueError(f"tile {tile} does not divide the block")
+    per_tile, per_lane = _cand_params(tile, ordered, per_tile, per_lane)
     p = planar_length(cfg, tile)
     if xi8.dim() != 2 or xi8.shape != xq8.shape or xi8.shape[1] != p:
         raise ValueError(f"expected two (C, {p}) planar arrays, got "
@@ -354,14 +486,60 @@ def preamble_detect_cands_planar(xi8: torch.Tensor, xq8: torch.Tensor,
     if xi8.device != xq8.device:
         raise ValueError("I and Q must be on one device")
     if xi8.device.type == "cpu":
-        return detect_cands_plain(xi8, xq8, cfg, tile)
+        return detect_cands_plain(xi8, xq8, cfg, tile, ordered, prescreen,
+                                  per_tile, per_lane)
     if xi8.device.type != "cuda":
         raise ValueError(f"unsupported device {xi8.device}")
-    return _detect_cands_cuda(xi8.contiguous(), xq8.contiguous(), cfg, tile)
+    return _detect_cands_cuda(xi8.contiguous(), xq8.contiguous(), cfg, tile,
+                              ordered, prescreen, per_tile, per_lane)
+
+
+def compact_candidates(cands: torch.Tensor, cfg: DspConfig, tile: int,
+                       per_tile: int = None):
+    """(*B, tiles, 8, 128) ORDERED candidate blocks -> the first K valid
+    entries in flat (tile, position) order as detection indices (-1 past
+    the valid ones), valid mask, total hit count and overflow, each with
+    leading shape B.
+
+    Each tile's list is ascending and tiles ascend, so these are ascending
+    too. They are not the earliest K of all hits: a tile that spilled past
+    per_tile lost hits that may be earlier than a later tile's kept ones,
+    as in the reference. The reference selects by rank-onehot matmuls (a
+    TPU scatter workaround); a sort of the valid entries' flat positions
+    selects the same."""
+    trows = tile // 128
+    sent = trows * 128
+    if per_tile is None:
+        per_tile = cand_capacity(tile)[0]
+    rows_o = -(-per_tile // 128)
+    lead = cands.shape[:-3]
+    tiles = cands.shape[-3]
+    dev = cands.device
+    ec = cands[..., :rows_o, :].reshape(*lead, tiles, rows_o * 128)
+    ec = ec[..., :per_tile]
+    valid_in = (ec < sent).reshape(*lead, tiles * per_tile)
+    tbase = (torch.arange(tiles, dtype=torch.int32, device=dev)
+             * tile)[:, None]
+    vals = (ec + tbase).reshape(*lead, tiles * per_tile)
+    big = tiles * per_tile
+    pos = torch.arange(big, dtype=torch.int64, device=dev)
+    key = torch.where(valid_in, pos, big)
+    K = cfg.max_detections
+    if big < K:
+        key = torch.nn.functional.pad(key, (0, K - big), value=big)
+    first = torch.sort(key, dim=-1).values[..., :K]
+    det = torch.gather(vals, -1, first.clamp(max=big - 1))
+    total = valid_in.sum(dim=-1, dtype=torch.int32)
+    kk = torch.arange(K, dtype=torch.int32, device=dev)
+    valid = kk < torch.clamp(total, max=K)[..., None]
+    det_idx = torch.where(valid, det, -1).to(torch.int32)
+    n_det = cands[..., _COUNT_ROW, :].sum(dim=(-2, -1), dtype=torch.int32)
+    overflow = n_det - valid.sum(dim=-1, dtype=torch.int32)
+    return det_idx, valid, n_det, overflow
 
 
 def compact_candidates_unordered(cands: torch.Tensor, cfg: DspConfig,
-                                 tile: int):
+                                 tile: int, per_lane: int = None):
     """(*B, tiles, 8, 128) unordered candidate blocks -> the earliest K
     detection indices (ascending, -1 past the valid ones), valid mask,
     total hit count and overflow, each with leading shape B.
@@ -371,7 +549,11 @@ def compact_candidates_unordered(cands: torch.Tensor, cfg: DspConfig,
     sample index and keeping the first K, which is what this does."""
     trows = tile // 128
     sent = trows * 128
-    per_lane = _per_lane(tile)
+    if per_lane is None:
+        per_lane = _cand_params(tile, False)[1]
+    if not 1 <= per_lane <= _COUNT_ROW:
+        raise ValueError(f"the unordered layout holds 1..{_COUNT_ROW} hits "
+                         f"per lane, got per_lane={per_lane}")
     lead = cands.shape[:-3]
     tiles = cands.shape[-3]
     dev = cands.device
@@ -399,9 +581,10 @@ def compact_candidates_unordered(cands: torch.Tensor, cfg: DspConfig,
 # --- kernel B2: per-detection power windows ----------------------------------
 
 def slice_windows_plain(ri: torch.Tensor, rq: torch.Tensor,
-                        base: torch.Tensor, cfg: DspConfig) -> torch.Tensor:
+                        base: torch.Tensor, cfg: DspConfig,
+                        extra: int = 0) -> torch.Tensor:
     """Plain PyTorch version of kernel B2 (advanced indexing)."""
-    _, out_rows, pad_rows, _ = _slice_geometry(cfg)
+    _, out_rows, pad_rows, _ = _slice_geometry(cfg, extra)
     fi, fq = ri.reshape(-1), rq.reshape(-1)
     total = fi.shape[0]
     j = torch.arange(out_rows * 128, dtype=torch.int64, device=base.device)
@@ -413,18 +596,18 @@ def slice_windows_plain(ri: torch.Tensor, rq: torch.Tensor,
     return torch.nn.functional.pad(w, (0, (pad_rows - out_rows) * 128))
 
 
-def _slice_windows_cuda(ri, rq, base, cfg):
-    out = torch.empty((base.shape[0], _slice_geometry(cfg)[2] * 128),
+def _slice_windows_cuda(ri, rq, base, cfg, extra):
+    out = torch.empty((base.shape[0], _slice_geometry(cfg, extra)[2] * 128),
                       dtype=torch.float32, device=ri.device)
-    launch_slice_windows(ri, rq, base, cfg, out)
+    launch_slice_windows(ri, rq, base, cfg, out, extra=extra)
     return out
 
 
-def launch_slice_windows(ri, rq, base, cfg, out) -> None:
+def launch_slice_windows(ri, rq, base, cfg, out, extra: int = 0) -> None:
     """Launch B2 on contiguous CUDA inputs into the given contiguous
     (n, pad_rows*128) f32 buffer; every element of it is written."""
     from . import _ext
-    _, out_rows, pad_rows, _ = _slice_geometry(cfg)
+    _, out_rows, pad_rows, _ = _slice_geometry(cfg, extra)
     n = base.shape[0]
     if tuple(out.shape) != (n, pad_rows * 128) or not out.is_contiguous():
         raise ValueError("B2 output of the wrong shape or not contiguous")
@@ -440,10 +623,13 @@ def launch_slice_windows(ri, rq, base, cfg, out) -> None:
 
 
 def slice_windows_planar(ri: torch.Tensor, rq: torch.Tensor,
-                         base: torch.Tensor, cfg: DspConfig) -> torch.Tensor:
+                         base: torch.Tensor, cfg: DspConfig,
+                         extra: int = 0) -> torch.Tensor:
     """Kernel B2: (rows, 128) int8 planar streams + (n,) int32 window
     starts (flat sample index; < 0 = empty row) -> (n, pad_rows*128) f32
-    power windows, window sample j at column j, zeros past out_rows*128."""
+    power windows, window sample j at column j, zeros past out_rows*128.
+    `extra` widens the window by 2*extra samples (the prescreen path's
+    stage-B windows)."""
     if ri.dtype != torch.int8 or rq.dtype != torch.int8 \
             or ri.shape != rq.shape:
         raise TypeError("planar streams must be two int8 arrays of one shape")
@@ -452,23 +638,26 @@ def slice_windows_planar(ri: torch.Tensor, rq: torch.Tensor,
     if not (ri.device == rq.device == base.device):
         raise ValueError("streams and starts must be on one device")
     if ri.device.type == "cpu":
-        return slice_windows_plain(ri, rq, base, cfg)
+        return slice_windows_plain(ri, rq, base, cfg, extra)
     if ri.device.type != "cuda":
         raise ValueError(f"unsupported device {ri.device}")
     return _slice_windows_cuda(ri.contiguous(), rq.contiguous(),
-                               base.contiguous(), cfg)
+                               base.contiguous(), cfg, extra)
 
 
 # --- decode tail and the batch entry points ----------------------------------
 
 def _tail_from_power(w2: torch.Tensor, det_idx, valid, n_det, overflow,
-                     cfg: DspConfig):
+                     cfg: DspConfig, event_off: int = None):
     """K-sized decode tail on (*B, K, >=W) f32 power windows: noise floor,
     ref level, PPM bits + confidence, CRC/ECC -> DetectionTable. The
-    preamble starts at window column noise_window."""
+    preamble starts at window column `event_off` (default noise_window;
+    the prescreen path's windows carry its NMS half-window before it)."""
     sps = cfg.sps
-    event_off = nw = cfg.noise_window
-    noise_at = w2[..., :nw].mean(dim=-1)
+    nw = cfg.noise_window
+    if event_off is None:
+        event_off = nw
+    noise_at = w2[..., event_off - nw: event_off].mean(dim=-1)
     acc = P.chip_sums(w2, sps) if sps > 1 else w2
     ce = acc * _f32(1.0 / sps) if sps > 1 else w2
     ref_level = P.ref_chain([acc[..., event_off + c * sps]
@@ -486,38 +675,161 @@ def _tail_from_power(w2: torch.Tensor, det_idx, valid, n_det, overflow,
                             status, ref_level, noise_at, n_det, overflow)
 
 
+def gather_tail_planar(xi8: torch.Tensor, xq8: torch.Tensor, det_idx, valid,
+                       n_det, overflow, cfg: DspConfig) -> P.DetectionTable:
+    """The `xla_gather=True` tail: each detection's (noise_window +
+    242*sps)-sample window gathered from its (C, P) planar int8 rows by
+    torch indexing in place of kernel B2, its power taken as B2 takes it,
+    then `_tail_from_power`. As the reference's dynamic slice, a start is
+    clamped into its row (the planar margin keeps every real one inside)."""
+    sps = cfg.sps
+    nw = cfg.noise_window
+    W = nw + 242 * sps
+    C, p = xi8.shape
+    K = det_idx.shape[-1]
+    start = cfg.left_halo + torch.where(valid, det_idx, 0).to(torch.int64) \
+        - nw
+    start = start.clamp(0, p - W)
+    j = torch.arange(W, dtype=torch.int64, device=xi8.device)
+    idx = (start[..., None] + j).reshape(C, K * W)
+    wi = torch.gather(xi8, 1, idx).reshape(C, K, W)
+    wq = torch.gather(xq8, 1, idx).reshape(C, K, W)
+    return _tail_from_power(power_i8(wi, wq), det_idx, valid, n_det,
+                            overflow, cfg)
+
+
+def _stageb_full_check(w2: torch.Tensor, cfg: DspConfig) -> torch.Tensor:
+    """Stage B of the prescreen path: the FULL rule at a candidate and at
+    its NMS neighbours within +-half, from its own (*B, K2, >= nw + 242*sps
+    + 2*half) power window (candidate's preamble at column nw + half), then
+    the NMS rule (strictly above every earlier qualifying neighbour, at
+    least every later one) -> the surviving candidates, bool (*B, K2)."""
+    nw = cfg.noise_window
+    if nw != 128:
+        raise ValueError("stage B fixes noise_window=128")
+    half = cfg.nms_chips * cfg.sps
+    ok, ref = _rule_ok(w2, cfg, nw, 2 * half + 1, _f32(cfg.threshold),
+                       PREAMBLE_QUIET_CHIPS, chain=True)
+    score = torch.where(ok, ref, 0.0)
+    center = score[..., half]
+    left_max = score[..., :half].amax(dim=-1)
+    right_max = score[..., half + 1:].amax(dim=-1)
+    return ok[..., half] & (center > left_max) & (center >= right_max)
+
+
+def _window_bases(valid, det_idx, p: int, off: int) -> torch.Tensor:
+    """(C*K,) int32 flat window starts into the (C*P,) planar streams,
+    channel c's detection d at c*P + d + off; -1 for empty table rows."""
+    chan0 = torch.arange(det_idx.shape[0], dtype=torch.int32,
+                         device=det_idx.device)[:, None] * p
+    return torch.where(valid, chan0 + det_idx + off,
+                       -1).reshape(-1).to(torch.int32)
+
+
+def _demod_batch_planar_prescreen(xi8, xq8, cfg: DspConfig, tile: int,
+                                  nbuf: int, per_lane: int,
+                                  k2: int = None) -> P.DetectionTable:
+    """Two-stage planar demod: B5p -> K2 candidate windows (B2, widened by
+    the NMS half-window) -> `_stageb_full_check` -> the earliest K winners
+    -> the decode tail. n_detected counts the stage-B winners, n_overflow
+    the stage-A spills plus the winners past K, as the reference counts
+    them."""
+    K = cfg.max_detections
+    K2 = k2 if k2 is not None else 2 * K
+    if K2 < K:
+        raise ValueError(f"k2 ({K2}) must be >= max_detections ({K})")
+    cfg2 = dataclasses.replace(cfg, max_detections=K2)
+    half = cfg.nms_chips * cfg.sps
+    nw = cfg.noise_window
+    cands = preamble_detect_cands_planar(xi8, xq8, cfg, tile=tile, nbuf=nbuf,
+                                         per_lane=per_lane, prescreen=True)
+    det2, valid2, _, ovf2 = compact_candidates_unordered(cands, cfg2, tile,
+                                                         per_lane=per_lane)
+    batch, p = xi8.shape
+    base = _window_bases(valid2, det2, p, cfg.left_halo - nw - half)
+    w2 = slice_windows_planar(xi8.reshape(-1, 128), xq8.reshape(-1, 128),
+                              base, cfg, extra=half).reshape(batch, K2, -1)
+    win = _stageb_full_check(w2, cfg) & valid2
+    # the earliest K winners: the reference's top_k and onehot matmuls are
+    # a TPU gather workaround; a sort and an index gather select the same
+    big = torch.iinfo(torch.int64).max
+    vals, sel = torch.sort(torch.where(win, det2.to(torch.int64), big),
+                           dim=-1)
+    vals, sel = vals[..., :K], sel[..., :K]
+    kvalid = vals < big
+    idx_sel = torch.where(kvalid, vals, 0).to(torch.int32)
+    wsel = torch.gather(w2, 1, sel[..., None].expand(-1, -1, w2.shape[-1]))
+    wsel = torch.where(kvalid[..., None], wsel, 0.0)
+    n_win = win.sum(dim=-1, dtype=torch.int32)
+    overflow = ovf2 + torch.clamp(n_win - K, min=0)
+    return _tail_from_power(wsel, idx_sel, kvalid, n_win, overflow, cfg,
+                            event_off=nw + half)
+
+
 def demod_batch_planar(xi8: torch.Tensor, xq8: torch.Tensor, cfg: DspConfig,
-                       tile: int = None,
-                       nbuf: int = DEFAULT_NBUF) -> P.DetectionTable:
+                       tile: int = None, nbuf: int = DEFAULT_NBUF, *,
+                       double_buffer: bool = False, per_tile: int = None,
+                       per_lane: int = None, ordered: bool = False,
+                       xla_gather: bool = False, prescreen: bool = False,
+                       k2: int = None) -> P.DetectionTable:
     """Planar int8 batched demod on the inputs' device: (C, P) x2 ->
-    DetectionTable with leading C (B1, compaction, B2, tail)."""
+    DetectionTable with leading C.
+
+    The default is the production path: B1, `compact_candidates_unordered`,
+    B2, the tail. The reference's options select as it does: ordered=True
+    takes B5o and `compact_candidates`; xla_gather=True gathers the windows
+    with torch indexing in place of B2; prescreen=True runs the two-stage
+    path (`_demod_batch_planar_prescreen`: B5p, K2 = k2 or 2K candidates,
+    stage B). per_lane is clamped to 4 on the unordered and prescreen
+    layouts; nbuf and double_buffer change nothing in the result."""
     if tile is None:
         tile = default_tile(cfg)
-    cands = preamble_detect_cands_planar(xi8, xq8, cfg, tile=tile, nbuf=nbuf)
-    det_idx, valid, n_det, ovf = compact_candidates_unordered(cands, cfg,
-                                                              tile)
+    pt, pl = cand_capacity(tile)
+    per_tile = pt if per_tile is None else per_tile
+    per_lane = pl if per_lane is None else per_lane
+    if not ordered or prescreen:
+        per_lane = min(per_lane, _COUNT_ROW)
+    if prescreen:
+        return _demod_batch_planar_prescreen(xi8, xq8, cfg, tile, nbuf,
+                                             per_lane, k2)
+    cands = preamble_detect_cands_planar(
+        xi8, xq8, cfg, tile=tile, nbuf=nbuf, double_buffer=double_buffer,
+        per_tile=per_tile, per_lane=per_lane, ordered=ordered)
+    if ordered:
+        det_idx, valid, n_det, ovf = compact_candidates(cands, cfg, tile,
+                                                        per_tile=per_tile)
+    else:
+        det_idx, valid, n_det, ovf = compact_candidates_unordered(
+            cands, cfg, tile, per_lane=per_lane)
+    if xla_gather:
+        return gather_tail_planar(xi8, xq8, det_idx, valid, n_det, ovf, cfg)
     batch, p = xi8.shape
-    chan0 = torch.arange(batch, dtype=torch.int32,
-                         device=xi8.device)[:, None] * p
-    base = torch.where(
-        valid, chan0 + cfg.left_halo + det_idx - cfg.noise_window, -1)
+    base = _window_bases(valid, det_idx, p,
+                         cfg.left_halo - cfg.noise_window)
     w2 = slice_windows_planar(xi8.reshape(-1, 128), xq8.reshape(-1, 128),
-                              base.reshape(-1).to(torch.int32), cfg)
+                              base, cfg)
     w2 = w2.reshape(batch, cfg.max_detections, -1)
     return _tail_from_power(w2, det_idx, valid, n_det, ovf, cfg)
 
 
 def demod_batch_packed_planar(xi8, xq8, cfg: DspConfig, tile: int = None,
-                              nbuf: int = DEFAULT_NBUF,
-                              device="cuda") -> torch.Tensor:
+                              nbuf: int = DEFAULT_NBUF, device="cuda", *,
+                              double_buffer: bool = False,
+                              per_tile: int = None, per_lane: int = None,
+                              ordered: bool = False, xla_gather: bool = False,
+                              prescreen: bool = False,
+                              k2: int = None) -> torch.Tensor:
     """Planar path + pack_table: (C, P) int8 x2 (numpy or tensors) ->
-    (C, K+1, 9) int32 on `device`. Runs on the card unless the caller asks
-    for the CPU, where it takes the kernels' plain versions."""
+    (C, K+1, 9) int32 on `device`, with demod_batch_planar's options. Runs
+    on the card unless the caller asks for the CPU, where it takes the
+    kernels' plain versions."""
     dev = resolve_device(device)
     xi = P._to_device(xi8, dev)
     xq = P._to_device(xq8, dev)
-    return P.pack_table(demod_batch_planar(xi, xq, cfg, tile=tile,
-                                           nbuf=nbuf))
+    return P.pack_table(demod_batch_planar(
+        xi, xq, cfg, tile=tile, nbuf=nbuf, double_buffer=double_buffer,
+        per_tile=per_tile, per_lane=per_lane, ordered=ordered,
+        xla_gather=xla_gather, prescreen=prescreen, k2=k2))
 
 
 # --- the f32 front: kernels B3 and B4 ----------------------------------------
@@ -587,23 +899,26 @@ def _check_2d(cfg: DspConfig, tile: int) -> int:
 
 
 def detect_mask_plain(x: torch.Tensor, valid: int, length: int,
-                      cfg: DspConfig):
-    """Plain PyTorch version of kernels B3/B4: (C, L, 2) f32 I/Q of which
-    the first `valid` samples count (the rest read as zeros), padded to
-    `length` -> (mask int32 (C, N), ref f32 (C, N))."""
+                      cfg: DspConfig, one_d: bool = False):
+    """Plain PyTorch version of kernels B3/B4 (and B6 with one_d): (C, L, 2)
+    f32 I/Q of which the first `valid` samples count (the rest read as
+    zeros), padded to `length` -> (mask int32 (C, N), ref f32 (C, N)).
+    one_d takes B6's form of the reference level (`ref_chain`)."""
     C = x.shape[0]
     xp = torch.zeros((C, length, 2), dtype=torch.float32, device=x.device)
     k = min(valid, length, x.shape[1])
     xp[:, :k] = x[:, :k]
-    keep, ref = _detect_plain(power_f32(xp[..., 0], xp[..., 1]), cfg)
+    keep, ref = _detect_plain(power_f32(xp[..., 0], xp[..., 1]), cfg,
+                              chain=one_d)
     return keep.to(torch.int32), ref
 
 
-def launch_detect_mask(x, valid, cfg, mask, ref) -> None:
-    """Launch B3/B4 on a contiguous CUDA (C, L, 2) f32 tensor, of which
-    the first `valid` samples per channel count, into the contiguous
-    (C, N) int32 mask and f32 ref buffers; every element of both is
-    written."""
+def launch_detect_mask(x, valid, cfg, mask, ref, one_d: bool = False) -> None:
+    """Launch B3/B4 (B6 with one_d: its reference-level form) on a
+    contiguous CUDA (C, L, 2) f32 tensor, of which the first `valid`
+    samples per channel count, into the contiguous (C, N) int32 mask and
+    f32 ref buffers; every element of both is written. The kernel has no
+    sps limit; the 2-D wrappers apply the reference's."""
     from . import _ext
     C, L = x.shape[0], x.shape[1]
     n = cfg.block_size
@@ -622,22 +937,25 @@ def launch_detect_mask(x, valid, cfg, mask, ref) -> None:
     with torch.cuda.device(x.device):
         rc = lib.detect_mask_launch(
             x.data_ptr(), mask.data_ptr(), ref.data_ptr(), C, L,
-            min(int(valid), L), n, n // _CHUNK, cfg.sps,
+            min(int(valid), L), n, n // _CHUNK, int(one_d), cfg.sps,
             cfg.nms_chips * cfg.sps, _detect_rhalo(cfg), _f32(cfg.threshold),
             _f32(cfg.pulse_tolerance), _f32(cfg.quiet_tolerance),
             _f32(1.0 / cfg.sps),
             torch.cuda.current_stream(x.device).cuda_stream)
     _ext.check(rc, "detect_mask")
     LAUNCHES["detect_mask"] += 1
-    DETECT_MASK_ROUTES["B3" if C == 1 else "B4"] += 1
+    if one_d:
+        DETECT_MASK_ROUTES["B6" if C == 1 else "B6 batch"] += 1
+    else:
+        DETECT_MASK_ROUTES["B3" if C == 1 else "B4"] += 1
 
 
 def _detect_mask(x: torch.Tensor, valid: int, length: int,
-                 cfg: DspConfig):
-    """B3/B4 on x's device: the kernel for a CUDA tensor, the plain version
-    for a CPU tensor."""
+                 cfg: DspConfig, one_d: bool = False):
+    """B3/B4 (B6 with one_d) on x's device: the kernel for a CUDA tensor,
+    the plain version for a CPU tensor."""
     if x.device.type == "cpu":
-        return detect_mask_plain(x, valid, length, cfg)
+        return detect_mask_plain(x, valid, length, cfg, one_d)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     C = x.shape[0]
@@ -648,7 +966,7 @@ def _detect_mask(x: torch.Tensor, valid: int, length: int,
     x = x.contiguous()
     if x.data_ptr() % 8:            # the kernel reads 8-byte I/Q pairs
         x = x.clone()
-    launch_detect_mask(x, valid, cfg, mask, ref)
+    launch_detect_mask(x, valid, cfg, mask, ref, one_d)
     return mask, ref
 
 
@@ -759,16 +1077,142 @@ def demod_batch_packed_fast(iq, cfg: DspConfig, tile: int = 16384,
     return P.pack_table(demod_batch_fast(x, cfg, tile=tile))
 
 
+# --- the 1-D f32 front: kernel B6, and its full-block tail ------------------
+#
+# The counterpart of the reference's v1 entry points: `preamble_detect_pallas`
+# (one block) and `preamble_detect_pallas_batch` (C blocks) become
+# `preamble_detect_1d` and `preamble_detect_1d_batch`, over the B3/B4 CUDA
+# kernel in its 1-D mode; `demod_block_pallas` and `demod_batch_pallas`
+# become `demod_block_1d` and `demod_batch_1d`. B6 decides as B3/B4 do, but
+# every input sample counts, the reference level takes the tail's form, and
+# there is no sps limit: it serves 20 Msps (sps 10).
+
+
+def _halo_r(cfg: DspConfig) -> int:
+    """Right window margin of the reference's 1-D kernels (its DMA windows
+    are 1024-aligned): the preamble, peak look-ahead and NMS window."""
+    half = cfg.nms_chips * cfg.sps
+    need = max(16 * cfg.sps + half + 4, 130)
+    r = 768
+    while r < need:
+        r += 1024
+    return r
+
+
+def b6_operands(iq: torch.Tensor, cfg: DspConfig, tile: int = 16384):
+    """B6's view of (L, 2) or (C, L, 2) f32/int8/int16 I/Q: (x (C, L, 2)
+    f32, valid, length). Every input sample counts up to the end of the
+    last tile's window, `length`, past which the reference reads nothing;
+    a shorter input reads zeros up to it."""
+    if cfg.noise_window != 128:
+        raise ValueError("the 1-D detect kernel fixes noise_window=128")
+    n = cfg.block_size
+    if n % tile or tile % 1024:
+        raise ValueError(f"tile {tile} must divide block_size {n} and be "
+                         "a multiple of 1024")
+    length = (n // tile - 1) * tile + _LOOKBACK + tile + _halo_r(cfg)
+    x = _to_f32(iq)
+    if x.dim() == 2:
+        x = x[None]
+    if x.dim() != 3 or x.shape[2] != 2:
+        raise ValueError(f"expected (L, 2) or (C, L, 2) I/Q, got "
+                         f"{tuple(iq.shape)}")
+    return x, min(x.shape[1], length), length
+
+
+def preamble_detect_1d(iq: torch.Tensor, cfg: DspConfig, tile: int = 16384):
+    """Kernel B6 on one (L+N+R, 2) block of f32/int8/int16 I/Q -> (mask
+    int32 (N,), ref f32 (N,)); the reference's `preamble_detect_pallas`."""
+    if iq.dim() != 2:
+        raise ValueError(f"expected (L, 2) I/Q, got {tuple(iq.shape)}")
+    mask, ref = _detect_mask(*b6_operands(iq, cfg, tile), cfg, one_d=True)
+    return mask[0], ref[0]
+
+
+def preamble_detect_1d_batch(iq: torch.Tensor, cfg: DspConfig,
+                             tile: int = 16384):
+    """Kernel B6 on (C, L+N+R, 2) I/Q -> (mask int32 (C, N), ref f32
+    (C, N)); the reference's `preamble_detect_pallas_batch`."""
+    if iq.dim() != 3:
+        raise ValueError(f"expected (C, L, 2) I/Q, got {tuple(iq.shape)}")
+    return _detect_mask(*b6_operands(iq, cfg, tile), cfg, one_d=True)
+
+
+def _full_tail(iq: torch.Tensor, mask: torch.Tensor, ref: torch.Tensor,
+               cfg: DspConfig) -> P.DetectionTable:
+    """The reference's `_xla_full_tail` on (*B, L', 2) I/Q and B6's (*B, N)
+    mask and ref: full-block power and noise floor, compaction, the ref
+    level of each detection taken from `ref`, bits, CRC/ECC -> table.
+    Unlike `dsp.pipeline.demod_block`, a short input is zero-padded to
+    L+N+R, as the reference's 1-D entry points do."""
+    left = cfg.left_halo
+    need = left + cfg.block_size + cfg.right_halo
+    if iq.shape[-2] < need:
+        iq = torch.nn.functional.pad(iq, (0, 0, 0, need - iq.shape[-2]))
+    mag2 = P.magnitude_squared(iq)
+    noise = P.noise_floor(mag2, cfg.noise_window)
+    det_idx, valid, n_det, overflow = P.compact_detections(
+        mask.bool(), cfg.max_detections)
+    safe_idx = torch.where(valid, det_idx, 0)
+    # an index gather: exact for NaN and Inf, which is what the reference's
+    # bit-pattern selection (_select_n) exists to guarantee
+    ref_level = P._take(ref, safe_idx)
+    noise_at = P._take(noise, left + safe_idx)
+    bits, confidence = P.slice_bits(mag2, det_idx, valid, ref_level, cfg,
+                                    left)
+    out_bits, df, nbits, synd, status = P.crc_check_and_correct(
+        bits, confidence, cfg)
+    return P.finalize_table(valid, det_idx, out_bits, df, nbits, synd,
+                            status, ref_level, noise_at, n_det, overflow)
+
+
+def demod_block_1d(iq: torch.Tensor, cfg: DspConfig,
+                   tile: int = 16384) -> P.DetectionTable:
+    """One block, (L+N+R, 2) I/Q on its device: B6 and the full-block tail
+    -> DetectionTable; the reference's `demod_block_pallas`."""
+    mask, ref = preamble_detect_1d(iq, cfg, tile=tile)
+    return _full_tail(iq, mask, ref, cfg)
+
+
+def demod_batch_1d(iq: torch.Tensor, cfg: DspConfig,
+                   tile: int = 16384) -> P.DetectionTable:
+    """A batch, (C, L+N+R, 2) I/Q on its device: B6 and the full-block tail
+    -> DetectionTable with leading C; the reference's `demod_batch_pallas`."""
+    mask, ref = preamble_detect_1d_batch(iq, cfg, tile=tile)
+    return _full_tail(iq, mask, ref, cfg)
+
+
+def demod_block_packed_1d(iq, cfg: DspConfig, tile: int = 16384,
+                          device="cuda") -> torch.Tensor:
+    """demod_block_1d + pack_table: one block (numpy or tensor) -> (K+1, 9)
+    int32 on `device`. Runs on the card unless the caller asks for the
+    CPU, where it takes the kernel's plain version."""
+    x = P._to_device(iq, resolve_device(device))
+    return P.pack_table(demod_block_1d(x, cfg, tile=tile))
+
+
+def demod_batch_packed_1d(iq, cfg: DspConfig, tile: int = 16384,
+                          device="cuda") -> torch.Tensor:
+    """demod_batch_1d + pack_table: (C, L+N+R, 2) -> (C, K+1, 9) int32 on
+    `device`."""
+    x = P._to_device(iq, resolve_device(device))
+    return P.pack_table(demod_batch_1d(x, cfg, tile=tile))
+
+
 __all__ = [
-    "CAND_ROWS", "DEFAULT_NBUF", "DETECT_MASK_ROUTES", "LAUNCHES",
-    "b3_operands", "b4_operands", "cand_capacity",
-    "compact_candidates_unordered", "default_tile", "demod_batch_fast",
-    "demod_batch_packed_fast", "demod_batch_packed_planar",
-    "demod_batch_planar", "demod_block_fast", "demod_block_packed_fast",
+    "CAND_ROWS", "DEFAULT_NBUF", "DETECT_CANDS_ROUTES", "DETECT_MASK_ROUTES",
+    "LAUNCHES", "b3_operands", "b4_operands", "b6_operands",
+    "cand_capacity", "compact_candidates", "compact_candidates_unordered",
+    "default_tile", "demod_batch_1d", "demod_batch_fast",
+    "demod_batch_packed_1d", "demod_batch_packed_fast",
+    "demod_batch_packed_planar", "demod_batch_planar", "demod_block_1d",
+    "demod_block_fast", "demod_block_packed_1d", "demod_block_packed_fast",
     "detect_cands_buffers", "detect_cands_plain", "detect_mask_plain",
-    "gather_tail", "launch_detect_cands", "launch_detect_mask",
-    "launch_slice_windows", "planar_length", "power_i8", "preamble_detect_2d",
-    "preamble_detect_2d_batch", "preamble_detect_cands_planar",
-    "reset_launches", "slice_windows_planar", "slice_windows_plain",
-    "supported_2d_tile", "supported_planar_tile", "to_planar_i8",
+    "gather_tail", "gather_tail_planar", "launch_detect_cands",
+    "launch_detect_mask", "launch_slice_windows", "planar_length",
+    "power_i8", "preamble_detect_1d", "preamble_detect_1d_batch",
+    "preamble_detect_2d", "preamble_detect_2d_batch",
+    "preamble_detect_cands_planar", "reset_launches",
+    "slice_windows_planar", "slice_windows_plain", "supported_2d_tile",
+    "supported_planar_tile", "to_planar_i8",
 ]

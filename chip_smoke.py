@@ -31,7 +31,23 @@ process per source, all at once), then:
      kernel B4) on a complex64 capture of 32 blocks, with the same checks;
      then `run_pipelined` at batch 1 over 4 blocks (kernel B3) and
      `run_channels` over two channels of 4 blocks, each equal to the CPU;
-  8. prints one JSON line of per-kernel numbers, the card line, and last
+  8. holds B1's variants B5o (ordered=True) and B5p (prescreen=True)
+     against their plain versions, as phase 2 does B1 (C = 8 at
+     DspConfig(): tile 131072, per_lane 8, per_tile 128; and at 4 Msps),
+     and kernel B6 (the 1-D detect) as phase 4 does B3/B4, at C = 8 and
+     C = 1, f32 and int8, 2, 4 and 20 Msps (sps 1, 2, 10), and on a block
+     with a NaN and an Inf sample; then 100 guarded repeats of each, as
+     phase 5;
+  9. drives the planar path's options over phase 6's uc8 capture, batches
+     of 8 through `demod_batch_packed_planar` with ordered=True (B5o),
+     prescreen=True (B5p, stage B) and xla_gather=True; and the 1-D path
+     over phase 7's complex64 capture through `demod_batch_packed_1d`
+     (B6, C = 8), 4 of its blocks through `demod_block_packed_1d` (B6,
+     C = 1), and an 8-block 20 Msps capture through
+     `demod_batch_packed_1d`: each at least 99% of each DF, its kernels
+     launched, every batch's packed table equal to the CPU's (noise within
+     rtol 1e-5, 1e-4 on the 1-D path's full-block noise floor);
+ 10. prints one JSON line of per-kernel numbers, the card line, and last
      {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero. Without a CUDA card, or without the
@@ -169,13 +185,18 @@ def write_capture(cfg, path, n_blocks, seed=1, fmt="uc8"):
 # --- timing ------------------------------------------------------------------
 
 def time_ms(fn, iters=20, flush=None, device_only=True):
-    """Mean milliseconds of fn() on the card by CUDA events, each run after
-    a write that evicts the L2 cache (the batch arrives from the host).
-    device_only: the card first spins ~2 ms while the host enqueues the
-    events and fn's launches, so the time is the card's alone and not the
-    host's launch overhead; False times the step as a caller sees it."""
+    """Median milliseconds of fn() on the card by CUDA events, each run
+    after a write that evicts the L2 cache (the batch arrives from the
+    host), after three untimed runs. device_only: the card first spins ~2
+    ms while the host enqueues the events and fn's launches, so the time is
+    the card's alone and not the host's launch overhead; False times the
+    step as a caller sees it. The median keeps a stalled run (a mean of
+    the first kernel timed in a process moved by a third between runs)
+    out of it."""
+    import statistics
     import torch
-    fn()
+    for _ in range(3):
+        fn()
     torch.cuda.synchronize()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
@@ -188,7 +209,7 @@ def time_ms(fn, iters=20, flush=None, device_only=True):
         fn()
         e.record()
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
 def b1_ops_per_sample(sps: int, half: int) -> int:
@@ -203,47 +224,68 @@ def b34_ops_per_sample(sps: int, half: int) -> int:
     return b1_ops_per_sample(sps, half) - 2
 
 
+def b5p_ops_per_sample(sps: int) -> int:
+    """B5p's: B1's without the NMS and with 5 quiet chips of 12 (the quiet
+    fold 4 maxima, not 11)."""
+    return 5 + 7 + (sps if sps > 1 else 0) + 28 - 7
+
+
+def b6_ops_per_sample(sps: int, half: int) -> int:
+    """B6's: B3/B4's, the reference level's FMA form taking 4 more at
+    sps > 1 (scale each pulse's chip sum: 1 product + 3 FMAs, not 1)."""
+    return b34_ops_per_sample(sps, half) + (4 if sps > 1 else 0)
+
+
+VARIANTS = {"B1": {}, "B5o": {"ordered": True}, "B5p": {"prescreen": True}}
+
+
 # --- phases ------------------------------------------------------------------
 
-def phase_b1(cfg, inputs, dev, flush):
-    """B1 kernel vs plain on the card for each named (xi, xq) input;
-    returns (results per input, max abs error, timing of the first)."""
+def phase_b1(cfg, inputs, dev, flush, variant="B1"):
+    """B1 (or its variant B5o, B5p: VARIANTS) kernel vs plain on the card
+    for each named (xi, xq) input; returns (results per input, max abs
+    error, timing of the first)."""
     import torch
     from airmodes_torch.kernels import preamble as K
     tile = K.default_tile(cfg)
+    kw = VARIANTS[variant]
     out, worst, timing = {}, 0, None
     for name, (xi, xq) in inputs.items():
-        ti = torch.from_numpy(xi).to(dev)
-        tq = torch.from_numpy(xq).to(dev)
-        got = K.preamble_detect_cands_planar(ti, tq, cfg)
-        want = K.detect_cands_plain(ti, tq, cfg, tile)
+        ti = torch.as_tensor(xi).to(dev)
+        tq = torch.as_tensor(xq).to(dev)
+        got = K.preamble_detect_cands_planar(ti, tq, cfg, **kw)
+        want = K.detect_cands_plain(ti, tq, cfg, tile, **kw)
         torch.cuda.synchronize()
         err = int((got - want).abs().max())
         hits = int(want[:, :, 4].sum())
-        det, valid, n_det, ovf = K.compact_candidates_unordered(
-            want, cfg, tile)
-        print(f"B1 sps={cfg.sps} {name}: hits {hits}, overflow "
+        if kw.get("ordered"):
+            det, valid, n_det, ovf = K.compact_candidates(want, cfg, tile)
+        else:
+            det, valid, n_det, ovf = K.compact_candidates_unordered(
+                want, cfg, tile)
+        print(f"{variant} sps={cfg.sps} {name}: hits {hits}, overflow "
               f"{int(ovf.sum())}, max |kernel - plain| {err}", flush=True)
         if not torch.equal(got, want):
             # which side is off: a second run of each, and whether each
             # holds only encodings and counts a tile can produce
-            again = K.detect_cands_plain(ti, tq, cfg, tile)
-            got2 = K.preamble_detect_cands_planar(ti, tq, cfg)
+            again = K.detect_cands_plain(ti, tq, cfg, tile, **kw)
+            got2 = K.preamble_detect_cands_planar(ti, tq, cfg, **kw)
             sane = [bool(((x[:, :, :5] >= 0) & (x[:, :, :5] <= tile)).all())
                     for x in (got, want)]
             raise AssertionError(
-                f"B1 kernel != plain on {name} (sps={cfg.sps}); plain "
-                f"repeats: {torch.equal(again, want)}, kernel repeats: "
-                f"{torch.equal(got2, got)}, kernel == plain rerun: "
-                f"{torch.equal(got, again)}, in range (kernel, plain): "
-                f"{sane}")
+                f"{variant} kernel != plain on {name} (sps={cfg.sps}); "
+                f"plain repeats: {torch.equal(again, want)}, kernel "
+                f"repeats: {torch.equal(got2, got)}, kernel == plain "
+                f"rerun: {torch.equal(got, again)}, in range (kernel, "
+                f"plain): {sane}")
         worst = max(worst, err)
         out[name] = (ti, tq, det, valid, int(ovf.sum()))
         if timing is None:
             timing = (
-                time_ms(lambda: K.preamble_detect_cands_planar(ti, tq, cfg),
+                time_ms(lambda: K.preamble_detect_cands_planar(ti, tq, cfg,
+                                                               **kw),
                         flush=flush),
-                time_ms(lambda: K.detect_cands_plain(ti, tq, cfg, tile),
+                time_ms(lambda: K.detect_cands_plain(ti, tq, cfg, tile, **kw),
                         iters=5, flush=flush),
                 ti.numel() + tq.numel(),
                 cfg.block_size * ti.shape[0],
@@ -316,15 +358,17 @@ def _check_guarded(buf, inner, what):
                              f"output elements left unwritten")
 
 
-def phase_repeat(cfg, b1_out, dev, iters):
-    """B1 and B2 launched `iters` times on each input of phase 2, into
-    guarded buffers, each time against a fresh plain result; between runs
-    the caching allocator is churned with blocks of CANARY so that each
-    run lands on other addresses and stale data would show."""
+def phase_repeat(cfg, b1_out, dev, iters, variant="B1"):
+    """B1 (or its variant, VARIANTS) launched `iters` times on each input
+    of phase 2, into guarded buffers, each time against a fresh plain
+    result, and with B1 also B2 on its windows; between runs the caching
+    allocator is churned with blocks of CANARY so that each run lands on
+    other addresses and stale data would show."""
     import numpy as np
     import torch
     from airmodes_torch.kernels import preamble as K
     tile = K.default_tile(cfg)
+    kw = VARIANTS[variant]
     _, out_rows, pad_rows, _ = K._slice_geometry(cfg)
     rng = np.random.default_rng(7)
     t0 = time.perf_counter()
@@ -334,89 +378,116 @@ def phase_repeat(cfg, b1_out, dev, iters):
         base = torch.where(valid, chan0 * p + cfg.left_halo + det
                            - cfg.noise_window, -1).reshape(-1).to(torch.int32)
         ri, rq = ti.reshape(-1, 128), tq.reshape(-1, 128)
-        s_shape, o_shape = K.detect_cands_buffers(C, cfg, tile)
+        s_shape, o_shape = K.detect_cands_buffers(C, cfg, tile,
+                                                  kw.get("ordered", False))
         w_shape = (base.numel(), pad_rows * 128)
         for it in range(iters):
             churn = torch.full((int(rng.integers(1, 1 << 22)),), CANARY,
                                dtype=torch.int32, device=dev)
             sbuf, scratch = _guarded(int(np.prod(s_shape)), dev)
             obuf, out = _guarded(int(np.prod(o_shape)), dev)
-            wbuf, w = _guarded(int(np.prod(w_shape)), dev)
             K.launch_detect_cands(ti, tq, cfg, tile, scratch.view(s_shape),
-                                  out.view(o_shape))
-            K.launch_slice_windows(ri, rq, base, cfg,
-                                   w.view(torch.float32).view(w_shape))
-            want = K.detect_cands_plain(ti, tq, cfg, tile)
-            want_w = K.slice_windows_plain(ri, rq, base, cfg)
+                                  out.view(o_shape), **kw)
+            want = K.detect_cands_plain(ti, tq, cfg, tile, **kw)
+            checks = [(sbuf, scratch, f"{variant} scratch"),
+                      (obuf, out, f"{variant} output")]
+            if variant == "B1":
+                wbuf, w = _guarded(int(np.prod(w_shape)), dev)
+                K.launch_slice_windows(ri, rq, base, cfg,
+                                       w.view(torch.float32).view(w_shape))
+                want_w = K.slice_windows_plain(ri, rq, base, cfg)
+                checks.append((wbuf, w, "B2 output"))
             del churn
-            for b, inner, what in ((sbuf, scratch, "B1 scratch"),
-                                   (obuf, out, "B1 output"),
-                                   (wbuf, w, "B2 output")):
+            for b, inner, what in checks:
                 _check_guarded(b, inner, f"{what} on {name}, run {it}")
             if not torch.equal(out.view(o_shape), want):
-                raise AssertionError(f"B1 kernel != plain on {name}, run {it}")
-            if not torch.equal(w.view(torch.float32).view(w_shape), want_w):
+                raise AssertionError(f"{variant} kernel != plain on {name}, "
+                                     f"run {it}")
+            if variant == "B1" and not torch.equal(
+                    w.view(torch.float32).view(w_shape), want_w):
                 raise AssertionError(f"B2 kernel != plain on {name}, run {it}")
-    print(f"repeat: B1 and B2 x{iters} on each of {list(b1_out)} "
+    what = "B1 and B2" if variant == "B1" else variant
+    print(f"repeat: {what} x{iters} on each of {list(b1_out)} "
           f"(sps={cfg.sps}): equal to plain every run, guards intact, every "
           f"output element written ({time.perf_counter() - t0:.2f} s)",
           flush=True)
 
 
-def phase_b34(cfg, inputs, dev, flush):
-    """B3/B4 kernel vs plain on the card for each named (C, L, 2) input
-    (C = 1 takes the B3 wrapper, C > 1 the B4 wrapper): mask and ref bit
-    for bit. Returns ({name: operands}, max abs error, {C: timing of the
-    first input with that C})."""
+def _ref_equal(got, want) -> bool:
+    """Reference levels equal bit for bit, NaN where the other has NaN
+    (the card's arithmetic gives one NaN pattern, the CPU's another)."""
+    import torch
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(
+        torch.where(nan, 0.0, got).view(torch.int32),
+        torch.where(nan, 0.0, want).view(torch.int32))
+
+
+def phase_b34(cfg, inputs, dev, flush, one_d=False):
+    """B3/B4 kernel (B6 with one_d) vs plain on the card for each named
+    (C, L, 2) input (C = 1 takes the one-block wrapper, C > 1 the batch
+    wrapper): mask and ref bit for bit. Returns ({name: operands}, max abs
+    error, {C: timing of the first f32 input with that C})."""
     import torch
     from airmodes_torch.kernels import preamble as K
-    tile = K.supported_2d_tile(cfg)
+    if one_d:
+        kid, tile = "B6", 16384
+        one_ops, one, batch_ops, batch = (
+            K.b6_operands, K.preamble_detect_1d, K.b6_operands,
+            K.preamble_detect_1d_batch)
+    else:
+        kid, tile = "B3/B4", K.supported_2d_tile(cfg)
+        one_ops, one, batch_ops, batch = (
+            K.b3_operands, K.preamble_detect_2d, K.b4_operands,
+            K.preamble_detect_2d_batch)
     out, worst, timing = {}, 0.0, {}
     for name, x in inputs.items():
         xt = torch.from_numpy(x).to(dev)
         C = xt.shape[0]
         if C == 1:
-            ops = K.b3_operands(xt[0], cfg, tile)
-            got = [g[None] for g in K.preamble_detect_2d(xt[0], cfg, tile)]
+            ops = one_ops(xt[0], cfg, tile)
+            got = [g[None] for g in one(xt[0], cfg, tile)]
         else:
-            ops = K.b4_operands(xt, cfg, tile)
-            got = K.preamble_detect_2d_batch(xt, cfg, tile)
-        want = K.detect_mask_plain(*ops, cfg)
+            ops = batch_ops(xt, cfg, tile)
+            got = batch(xt, cfg, tile)
+        want = K.detect_mask_plain(*ops, cfg, one_d)
         torch.cuda.synchronize()
+        fin = torch.isfinite(want[1]) & torch.isfinite(got[1])
         err = max(float((got[0] - want[0]).abs().max()),
-                  float((got[1] - want[1]).abs().max()))
-        print(f"B3/B4 sps={cfg.sps} {name} (C={C}, {x.dtype}): hits "
+                  float(torch.where(fin, got[1] - want[1], 0.0).abs().max()))
+        print(f"{kid} sps={cfg.sps} {name} (C={C}, {x.dtype}): hits "
               f"{int(want[0].sum())}, max |kernel - plain| {err}",
               flush=True)
         mask_eq = torch.equal(got[0], want[0])
-        ref_eq = torch.equal(got[1].view(torch.int32),
-                             want[1].view(torch.int32))
+        ref_eq = _ref_equal(got[1], want[1])
         if not (mask_eq and ref_eq):
-            again = K.detect_mask_plain(*ops, cfg)
+            again = K.detect_mask_plain(*ops, cfg, one_d)
             raise AssertionError(
-                f"B3/B4 kernel != plain on {name} (sps={cfg.sps}); mask "
+                f"{kid} kernel != plain on {name} (sps={cfg.sps}); mask "
                 f"equal: {mask_eq}, ref bits equal: {ref_eq}, plain "
                 f"repeats: {torch.equal(again[0], want[0])}")
         worst = max(worst, err)
         out[name] = ops
         if C not in timing and x.dtype.name == "float32":
-            fn = ((lambda: K.preamble_detect_2d(xt[0], cfg, tile)) if C == 1
-                  else (lambda: K.preamble_detect_2d_batch(xt, cfg, tile)))
+            fn = ((lambda: one(xt[0], cfg, tile)) if C == 1
+                  else (lambda: batch(xt, cfg, tile)))
             timing[C] = (time_ms(fn, flush=flush),
-                         time_ms(lambda: K.detect_mask_plain(*ops, cfg),
+                         time_ms(lambda: K.detect_mask_plain(*ops, cfg,
+                                                             one_d),
                                  iters=5, flush=flush),
-                         xt.numel() * 4 + 2 * C * cfg.block_size * 4,
+                         C * ops[1] * 8 + 2 * C * cfg.block_size * 4,
                          C * cfg.block_size)
     return out, worst, timing
 
 
-def phase_repeat_b34(cfg, b34_out, dev, iters):
-    """B3/B4 launched `iters` times on each input of phase_b34 into
-    guarded buffers, each time against a fresh plain result, with the
-    allocator churned between runs (as phase_repeat)."""
+def phase_repeat_b34(cfg, b34_out, dev, iters, one_d=False):
+    """B3/B4 (B6 with one_d) launched `iters` times on each input of
+    phase_b34 into guarded buffers, each time against a fresh plain
+    result, with the allocator churned between runs (as phase_repeat)."""
     import numpy as np
     import torch
     from airmodes_torch.kernels import preamble as K
+    kid = "B6" if one_d else "B3/B4"
     rng = np.random.default_rng(8)
     n = cfg.block_size
     t0 = time.perf_counter()
@@ -428,17 +499,18 @@ def phase_repeat_b34(cfg, b34_out, dev, iters):
             mbuf, m = _guarded(C * n, dev)
             rbuf, r = _guarded(C * n, dev)
             K.launch_detect_mask(x, valid, cfg, m.view(C, n),
-                                 r.view(torch.float32).view(C, n))
-            want_m, want_r = K.detect_mask_plain(x, valid, length, cfg)
+                                 r.view(torch.float32).view(C, n), one_d)
+            want_m, want_r = K.detect_mask_plain(x, valid, length, cfg,
+                                                 one_d)
             del churn
-            for b, inner, what in ((mbuf, m, "B3/B4 mask"),
-                                   (rbuf, r, "B3/B4 ref")):
+            for b, inner, what in ((mbuf, m, f"{kid} mask"),
+                                   (rbuf, r, f"{kid} ref")):
                 _check_guarded(b, inner, f"{what} on {name}, run {it}")
-            if not (torch.equal(m.view(C, n), want_m) and torch.equal(
-                    r.view(C, n), want_r.view(torch.int32))):
-                raise AssertionError(f"B3/B4 kernel != plain on {name}, "
+            if not (torch.equal(m.view(C, n), want_m) and _ref_equal(
+                    r.view(torch.float32).view(C, n), want_r)):
+                raise AssertionError(f"{kid} kernel != plain on {name}, "
                                      f"run {it}")
-    print(f"repeat: B3/B4 x{iters} on each of {list(b34_out)} "
+    print(f"repeat: {kid} x{iters} on each of {list(b34_out)} "
           f"(sps={cfg.sps}): equal to plain every run, guards intact, every "
           f"output element written ({time.perf_counter() - t0:.2f} s)",
           flush=True)
@@ -554,7 +626,8 @@ def phase_main(cfg, dev, tmp, smi):
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     print(f"main: launches {launches}", flush=True)
-    for k in ("detect_cands", "slice_windows"):
+    launches["B1"] = K.DETECT_CANDS_ROUTES["B1"]
+    for k in ("B1", "slice_windows"):
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on the int8 "
                                  f"path")
@@ -586,7 +659,7 @@ def phase_main(cfg, dev, tmp, smi):
           f"= {BATCH * cfg.block_size / step_ms / 1e3:.1f} Msps; end to end "
           f"{samples / wall / 1e6:.1f} Msps over {N_MAIN_BLOCKS} blocks "
           f"({wall:.3f} s) [{smi}]", flush=True)
-    return launches
+    return launches, truth
 
 
 def _stream_blocks(cfg, path, start=0, stop=None):
@@ -726,6 +799,182 @@ def phase_main_f32(cfg, dev, tmp, smi):
     print(f"f32: run_channels, 2 channels x 4 blocks: "
           f"{[len(c) for st in steps for c in st]} messages == CPU, B4 "
           f"launches {K.DETECT_MASK_ROUTES['B4']}", flush=True)
+    return launches, truth
+
+
+def _check_batch(on_card, on_cpu, what, rtol):
+    """A batch's packed tables on the card == on the CPU: every int32
+    column exactly, noise within rtol."""
+    import numpy as np
+    cols = [0, 1, 2, 3, 5, 6, 7, 8]
+    if not np.array_equal(on_card[..., cols], on_cpu[..., cols]):
+        raise AssertionError(f"{what}: card table != CPU table")
+    np.testing.assert_allclose(on_card[..., :-1, 4].view(np.float32),
+                               on_cpu[..., :-1, 4].view(np.float32),
+                               rtol=rtol, err_msg=what)
+
+
+def _decode_check(msgs, truth, what):
+    """Print the decode per DF and fail below 99% of any DF's frames."""
+    per_df = decoded_per_df(msgs, truth)
+    for df, (d, n) in per_df.items():
+        print(f"{what}: df{df} decoded {d}/{n}", flush=True)
+    short = {df: dn for df, dn in per_df.items() if dn[0] < 0.99 * dn[1]}
+    if short:
+        raise AssertionError(f"{what}: decode below 99% for DFs {short}")
+
+
+def _run_batches(batches, step, cfg, what, rtol):
+    """Each (host batch, starts, full scales) through step(x, device) on
+    the card and on the CPU: the tables must agree (_check_batch); returns
+    the card's messages, in stream order."""
+    import torch
+    from airmodes_torch.dsp.host import table_to_messages
+    from airmodes_torch.dsp.pipeline import unpack_table
+    msgs = []
+    for k, (xb, starts, scales) in enumerate(batches):
+        on_card = step(xb, "cuda").cpu().numpy()
+        on_cpu = step(xb, "cpu").numpy()
+        _check_batch(on_card, on_cpu, f"{what}, batch {k}", rtol)
+        for j, (st, fs) in enumerate(zip(starts, scales)):
+            msgs += table_to_messages(unpack_table(on_card[j]), st,
+                                      cfg.channel_rate, full_scale=fs)
+    torch.cuda.synchronize()
+    return msgs
+
+
+def phase_planar_options(cfg, dev, path, truth, smi):
+    """The planar path's reference options over the uc8 capture of phase
+    6, framed by the runner's AGC framer into batches of 8: ordered=True
+    (B5o, compact_candidates), prescreen=True (B5p, stage B) and
+    xla_gather=True (B1, a torch gather in place of B2). Returns the
+    launch counts of B5o and B5p."""
+    import numpy as np
+    import torch
+    from airmodes_torch.io.native_stream import _PlanarSource
+    from airmodes_torch.kernels import preamble as K
+    p = K.planar_length(cfg)
+    src = _PlanarSource(cfg, p, path=path, fmt="uc8")
+    batches = []
+    try:
+        while True:
+            xi = np.zeros((BATCH, p), np.int8)
+            xq = np.zeros((BATCH, p), np.int8)
+            starts, scales = [], []
+            for j in range(BATCH):
+                got = src.next_row(xi[j], xq[j])
+                if got is None:
+                    break
+                starts.append(got[0])
+                scales.append(got[1])
+            if not starts:
+                break
+            batches.append(((xi, xq), starts, scales))
+    finally:
+        src.close()
+    if sum(len(b[1]) for b in batches) != N_MAIN_BLOCKS:
+        raise AssertionError("the uc8 capture did not frame into "
+                             f"{N_MAIN_BLOCKS} blocks")
+    launches = {}
+    for opt, kid, want in (("ordered", "B5o", ("B5o", "slice_windows")),
+                           ("prescreen", "B5p", ("B5p", "slice_windows")),
+                           ("xla_gather", None, ("B1",))):
+        kw = {opt: True}
+
+        def step(xb, device, kw=kw):
+            return K.demod_batch_packed_planar(xb[0], xb[1], cfg,
+                                               device=device, **kw)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        msgs = _run_batches(batches, step, cfg, f"planar {opt}", 1e-5)
+        counts = {**K.LAUNCHES, **K.DETECT_CANDS_ROUTES}
+        print(f"planar {opt}=True: {len(msgs)} messages of "
+              f"{N_MAIN_BLOCKS} blocks, every batch == CPU, launches "
+              f"{counts} ({time.perf_counter() - t0:.1f} s)", flush=True)
+        for k in want:
+            if counts[k] <= 0:
+                raise AssertionError(f"{k} never launched with {opt}=True")
+        if opt == "xla_gather" and counts["slice_windows"]:
+            raise AssertionError("xla_gather=True launched B2")
+        if kid:
+            launches[kid] = counts[kid]
+        _decode_check(msgs, truth, f"planar {opt}")
+        ti = torch.from_numpy(batches[0][0][0]).to(dev)
+        tq = torch.from_numpy(batches[0][0][1]).to(dev)
+        ms = time_ms(lambda: step((ti, tq), dev), device_only=False)
+        print(f"planar {opt}=True: demod step {ms:.4f} ms per batch of "
+              f"{BATCH} blocks = {BATCH * cfg.block_size / ms / 1e3:.1f} "
+              f"Msps [{smi}]", flush=True)
+    return launches
+
+
+def phase_1d(cfg, dev, path, truth, tmp, smi):
+    """The 1-D path: the 32-block complex64 capture of phase 7 (`path`,
+    `truth`) through demod_batch_packed_1d (B6, C = 8), 4 of its blocks
+    through demod_block_packed_1d (B6, C = 1), and an 8-block 20 Msps
+    capture through demod_batch_packed_1d. Returns B6's launch counts per
+    C."""
+    import numpy as np
+    import torch
+    from airmodes_torch.config import DspConfig
+    from airmodes_torch.kernels import preamble as K
+
+    def batches(c, pth, start=0, stop=None, size=BATCH):
+        blocks = list(_stream_blocks(c, pth, start, stop))
+        return [(np.stack([b for b, _ in blocks[i: i + size]]),
+                 [st for _, st in blocks[i: i + size]],
+                 [1.0] * len(blocks[i: i + size]))
+                for i in range(0, len(blocks), size)]
+
+    def batch_step(c):
+        return lambda xb, device: K.demod_batch_packed_1d(xb, c,
+                                                          device=device)
+
+    launches = {}
+    K.reset_launches()
+    t0 = time.perf_counter()
+    msgs = _run_batches(batches(cfg, path), batch_step(cfg), cfg, "1-D",
+                        1e-4)
+    launches[BATCH] = K.DETECT_MASK_ROUTES["B6 batch"]
+    print(f"1-D: {len(msgs)} messages of {N_MAIN_BLOCKS} blocks, every "
+          f"batch == CPU, routes {dict(K.DETECT_MASK_ROUTES)} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if launches[BATCH] <= 0:
+        raise AssertionError("B6 never launched on the 1-D batch path")
+    _decode_check(msgs, truth, "1-D")
+    xt = torch.from_numpy(batches(cfg, path, 0, BATCH)[0][0]).to(dev)
+    ms = time_ms(lambda: K.demod_batch_packed_1d(xt, cfg, device=dev),
+                 device_only=False)
+    print(f"1-D: demod step {ms:.4f} ms per batch of {BATCH} blocks = "
+          f"{BATCH * cfg.block_size / ms / 1e3:.1f} Msps [{smi}]",
+          flush=True)
+    del xt
+
+    # one block per call: B6 at C = 1
+    K.reset_launches()
+    one = _run_batches(batches(cfg, path, 0, 4, size=1),
+                       lambda xb, device: K.demod_block_packed_1d(
+                           xb[0], cfg, device=device)[None],
+                       cfg, "1-D one block", 1e-4)
+    launches[1] = K.DETECT_MASK_ROUTES["B6"]
+    if launches[1] <= 0:
+        raise AssertionError("B6 never launched on one block")
+    print(f"1-D one block, 4 blocks: {len(one)} messages, each table == "
+          f"CPU, B6 launches {launches[1]}", flush=True)
+
+    # 20 Msps (sps 10), where the 2-D kernels refuse the config
+    cfg20 = DspConfig(channel_rate=20e6)
+    path20 = os.path.join(tmp, "fast.c64")
+    truth20 = write_capture(cfg20, path20, BATCH, seed=3, fmt="complex64")
+    K.reset_launches()
+    msgs = _run_batches(batches(cfg20, path20), batch_step(cfg20), cfg20,
+                        "1-D 20 Msps", 1e-4)
+    if K.DETECT_MASK_ROUTES["B6 batch"] <= 0:
+        raise AssertionError("B6 never launched at 20 Msps")
+    print(f"1-D 20 Msps: {len(msgs)} messages of {BATCH} blocks, every "
+          f"batch == CPU, B6 launches {K.DETECT_MASK_ROUTES['B6 batch']}",
+          flush=True)
+    _decode_check(msgs, truth20, "1-D 20 Msps")
     return launches
 
 
@@ -761,14 +1010,23 @@ def main() -> int:
     zeros = np.zeros_like(mi)
     cfg2 = DspConfig(channel_rate=4e6)
     ((si, sq), sf), _ = mixed_capture(cfg2, BATCH, seed=4)
+    cfg10 = DspConfig(channel_rate=20e6)
+    (_, tf), _ = mixed_capture(cfg10, BATCH, seed=6)
     print(f"captures built in {time.perf_counter() - t0:.2f} s", flush=True)
-    b1_out, b1_err, b1_t = phase_b1(
-        cfg, {"mixed": (mi, mq), "dense": (di, dq), "silence": (zeros, zeros)},
-        dev, flush)
+    planar_in = {"mixed": (mi, mq), "dense": (di, dq),
+                 "silence": (zeros, zeros)}
+    b1_out, b1_err, b1_t = phase_b1(cfg, planar_in, dev, flush)
     if b1_out["dense"][4] <= 0:
         raise AssertionError("dense input did not overflow K")
     b1_out2, err2, _ = phase_b1(cfg2, {"mixed": (si, sq)}, dev, flush)
     b1_err = max(b1_err, err2)
+    b5, b5_out = {}, {}
+    for variant in ("B5o", "B5p"):
+        out, err, timing = phase_b1(cfg, planar_in, dev, flush, variant)
+        out2, err2, _ = phase_b1(cfg2, {"mixed": (si, sq)}, dev, flush,
+                                 variant)
+        b5[variant] = (max(err, err2), timing)
+        b5_out[variant] = (out, out2)
 
     b2_err, b2_t = phase_b2(cfg, {k: b1_out[k] for k in ("mixed", "dense")},
                             flush)
@@ -782,38 +1040,66 @@ def main() -> int:
     b34_out, b34_err, b34_t = phase_b34(cfg, b34_in, dev, flush)
     b34_out2, err2, _ = phase_b34(cfg2, {"mixed": sf}, dev, flush)
     b34_err = max(b34_err, err2)
-    del mf, df, sf, b34_in
+    nan_blk = mf[:1].copy()       # a corrupt sample of each kind
+    nan_blk[0, cfg.left_halo + 500_000, 0] = np.nan
+    nan_blk[0, cfg.left_halo + 700_000, 1] = np.inf
+    b6_in = {"mixed": mf, "dense": df, "silence": np.zeros_like(mf),
+             "mixed[0]": mf[:1], "dense[0]": df[:1],
+             "silence[0]": np.zeros_like(mf[:1]),
+             "mixed int8": wire(mf, np.int8),
+             "mixed[0] int8": wire(mf[:1], np.int8),
+             "mixed[0] NaN, Inf": nan_blk}
+    b6_out, b6_err, b6_t = phase_b34(cfg, b6_in, dev, flush, one_d=True)
+    b6_out2, err2, _ = phase_b34(cfg2, {"mixed": sf, "mixed[0]": sf[:1]},
+                                 dev, flush, one_d=True)
+    b6_out10, err10, b6_t10 = phase_b34(
+        cfg10, {"mixed": tf, "mixed[0]": tf[:1],
+                "mixed int8": wire(tf, np.int8)}, dev, flush, one_d=True)
+    b6_err = max(b6_err, err2, err10)
+    del mf, df, sf, tf, b34_in, b6_in, nan_blk
 
     phase_repeat(cfg, b1_out, dev, REPEAT)
     phase_repeat(cfg2, b1_out2, dev, REPEAT)
+    for variant, (out, out2) in b5_out.items():
+        phase_repeat(cfg, out, dev, REPEAT, variant)
+        phase_repeat(cfg2, out2, dev, REPEAT, variant)
     phase_repeat_b34(cfg, {k: b34_out[k] for k in
                            ("mixed", "dense", "silence", "mixed[0]",
                             "dense[0]")}, dev, REPEAT)
-    del b1_out, b1_out2, b34_out, b34_out2
+    phase_repeat_b34(cfg, {k: b6_out[k] for k in
+                           ("mixed", "dense", "silence", "mixed[0]",
+                            "dense[0]", "mixed[0] NaN, Inf")}, dev, REPEAT,
+                     one_d=True)
+    phase_repeat_b34(cfg10, {"mixed": b6_out10["mixed"]}, dev, REPEAT,
+                     one_d=True)
+    del b1_out, b1_out2, b5_out, b34_out, b34_out2, b6_out, b6_out2, b6_out10
 
     with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_main(cfg, dev, tmp, smi)
+        launches, truth = phase_main(cfg, dev, tmp, smi)
+        b5_launches = phase_planar_options(
+            cfg, dev, os.path.join(tmp, "main.uc8"), truth, smi)
     with tempfile.TemporaryDirectory() as tmp:
-        routes = phase_main_f32(cfg, dev, tmp, smi)
+        routes, truth = phase_main_f32(cfg, dev, tmp, smi)
+        b6_launches = phase_1d(cfg, dev, os.path.join(tmp, "main.c64"),
+                               truth, tmp, smi)
 
+    def bound(n_bytes, n_ops):
+        mem_s, ops_s = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_S
+        return (max(mem_s, ops_s) * 1e3,
+                "bytes" if mem_s >= ops_s else "operations")
+
+    half = cfg.nms_chips * cfg.sps
     b1_ms, b1_plain, b1_bytes, b1_samples = b1_t
     b1_out_bytes = BATCH * (cfg.block_size // 131072) * 8 * 128 * 4
-    b1_mem_s = (b1_bytes + b1_out_bytes) / PEAK_BYTES_S
-    b1_ops_s = b1_samples * b1_ops_per_sample(
-        cfg.sps, cfg.nms_chips * cfg.sps) / PEAK_F32_S
-    b1_bound = max(b1_mem_s, b1_ops_s) * 1e3
-    b1_by = "bytes" if b1_mem_s >= b1_ops_s else "operations"
+    b1_bound, b1_by = bound(b1_bytes + b1_out_bytes,
+                            b1_samples * b1_ops_per_sample(cfg.sps, half))
     b2_ms, b2_plain, b2_lib, b2_in, b2_out = b2_t
-    b2_bytes = 2 * b2_in + 4 * b2_out
-    b2_ops = 5 * b2_in
-    b2_bound = max(b2_bytes / PEAK_BYTES_S, b2_ops / PEAK_F32_S) * 1e3
-    b2_by = "bytes" if b2_bytes / PEAK_BYTES_S >= b2_ops / PEAK_F32_S \
-        else "operations"
+    b2_bound, b2_by = bound(2 * b2_in + 4 * b2_out, 5 * b2_in)
     kernels = [
         {"name": "detect_cands (B1)", "route": "cuda",
          "source": "airmodes_torch/kernels/csrc/detect_cands.cu",
          "replaces": "airmodes/kernels/preamble_pallas.py:1096",
-         "launches": launches["detect_cands"], "max_abs_err": b1_err,
+         "launches": launches["B1"], "max_abs_err": b1_err,
          "ms": b1_ms, "plain_ms": b1_plain, "bound_ms": b1_bound,
          "bound_by": b1_by, "library_ms": None},
         {"name": "slice_windows (B2)", "route": "cuda",
@@ -825,17 +1111,42 @@ def main() -> int:
     ]
     for C, kid, line in ((1, "B3", 303), (BATCH, "B4", 517)):
         ms, plain_ms, n_bytes, samples = b34_t[C]
-        mem_s = n_bytes / PEAK_BYTES_S
-        ops_s = samples * b34_ops_per_sample(
-            cfg.sps, cfg.nms_chips * cfg.sps) / PEAK_F32_S
+        bms, by = bound(n_bytes, samples * b34_ops_per_sample(cfg.sps, half))
         kernels.append(
             {"name": f"detect_mask ({kid}, C={C})", "route": "cuda",
              "source": "airmodes_torch/kernels/csrc/detect_mask.cu",
              "replaces": f"airmodes/kernels/preamble_pallas.py:{line}",
              "launches": routes[kid], "max_abs_err": b34_err, "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": max(mem_s, ops_s) * 1e3,
-             "bound_by": "bytes" if mem_s >= ops_s else "operations",
+             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
              "library_ms": None})
+    for kid, line, ops in (("B5o", 1033, b1_ops_per_sample(cfg.sps, half)),
+                           ("B5p", 636, b5p_ops_per_sample(cfg.sps))):
+        err, (ms, plain_ms, n_bytes, samples) = b5[kid]
+        bms, by = bound(n_bytes + b1_out_bytes, samples * ops)
+        kernels.append(
+            {"name": f"detect_cands ({kid})", "route": "cuda",
+             "source": "airmodes_torch/kernels/csrc/detect_cands.cu",
+             "replaces": f"airmodes/kernels/preamble_pallas.py:{line}",
+             "launches": b5_launches[kid], "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+             "library_ms": None})
+    for C, line in ((1, 57), (BATCH, 395)):
+        ms, plain_ms, n_bytes, samples = b6_t[C]
+        bms, by = bound(n_bytes, samples * b6_ops_per_sample(cfg.sps, half))
+        kernels.append(
+            {"name": f"detect_mask (B6, C={C})", "route": "cuda",
+             "source": "airmodes_torch/kernels/csrc/detect_mask.cu",
+             "replaces": f"airmodes/kernels/preamble_pallas.py:{line}",
+             "launches": b6_launches[C], "max_abs_err": b6_err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+             "library_ms": None})
+    ms, plain_ms, n_bytes, samples = b6_t10[BATCH]
+    half10 = cfg10.nms_chips * cfg10.sps
+    bms, by = bound(n_bytes, samples * b6_ops_per_sample(cfg10.sps, half10))
+    print(f"B6 at 20 Msps (sps 10), C={BATCH}: {ms:.5f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bms:.5f} ms ({by}; "
+          f"{b6_ops_per_sample(cfg10.sps, half10)} operations per sample) "
+          f"[{smi}]", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
