@@ -11,12 +11,11 @@
 // with a batch dimension serves all; the wrappers (kernels/preamble.py)
 // convert int8 and int16 wire samples to unit-scale f32 first, as the
 // reference does. The 1-D mode differs in two things only: the reference
-// level takes the 1-D kernel's FMA form (detect_body.cuh: ref_at), and the
-// wrapper passes as `valid` every input sample where the 2-D ones drop a
-// trailing partial 128-sample row. Neither mode checks sps: the reference's
-// 2-D limit (14*sps < 128, a TPU lane-shift bound) lives in the 2-D
-// wrappers, and B6 runs at 20 Msps (sps 10), where a chunk stages
-// 256 + 4096 + 192 samples (~79 KB of shared memory with its fold arrays).
+// level takes the 1-D kernel's FMA form (detect_body.cuh), and the wrapper
+// passes as `valid` every input sample where the 2-D ones drop a trailing
+// partial 128-sample row. Neither mode checks sps: the reference's 2-D
+// limit (14*sps < 128, a TPU lane-shift bound) lives in the 2-D wrappers,
+// and B6 runs at 20 Msps (sps 10).
 //
 // What it computes, per channel c and owned sample d of the block
 // (block position x = d + 256, the left halo before it): the power
@@ -25,23 +24,26 @@
 // trailing partial 128-sample row), then the preamble rule of
 // detect_body.cuh: noise fold, chip energies, the pulse and quiet tests,
 // NMS. Output: mask[c][d] = 1 where the sample is kept, else 0 (int32), and
-// ref[c][d] = the reference level at d (f32), for every owned d.
+// ref[c][d] = the reference level at d (f32), for every owned d. The block
+// may be any multiple of 16 samples (the wrappers take multiples of 1024,
+// as the reference's tiles): the last chunk's CTA writes only what exists.
 //
 // Numerics: as B1's (detect_cands.cu): the reference's f32 operations in
 // its order, with explicit round-to-nearest intrinsics; the one FMA of the
-// power and the one of the reference level at sps > 1 are what XLA
-// computes for the reference on the CPU; built with --fmad=false so that
-// nothing else is contracted. The reference may take the noise-window sum
-// as two matmuls (mxu_window_sum); this kernel always folds.
+// power and those of the reference level at sps > 1 are what XLA computes
+// for the reference on the CPU; built with --fmad=false so that nothing
+// else is contracted. The reference may take the noise-window sum as two
+// matmuls (mxu_window_sum); this kernel always folds.
 //
 // What bounds it on this card: it reads 8 bytes per sample (an f32 pair)
-// and writes 8 (mask and ref), while the rule costs ~44 f32 operations per
-// sample; at 3.35 TB/s and 67 TFLOP/s the bytes take ~7x longer, so it is
-// bound by bytes. Design: B1's chunked design carries over — one CTA per
-// 4096 owned samples of one channel stages the power of the chunk, 256
-// samples of lookback and a right halo in shared memory (~76 KB), runs the
-// rule there, and writes the chunk's mask and ref coalesced. Neighbouring
-// threads read neighbouring f32 pairs (8 bytes each).
+// and writes 8 (mask and ref), while the rule issues ~42 f32 instructions
+// per sample; at 3.35 TB/s and 33.5 T f32 instructions per second the
+// bytes take ~3x longer, so it is bound by bytes. Design: one CTA per 4096
+// owned samples of one channel loads its pairs as float4 (two pairs) per
+// thread where the row allows, stages their power in shared memory, runs
+// the rule (detect_body.cuh), and each thread stores the mask and the
+// reference levels of its own 16 samples as int4 and float4, the levels
+// straight from its tests.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,7 +53,7 @@
 namespace {
 
 using detect::kChunk;
-using detect::kLookback;
+using detect::kRun;
 using detect::kThreads;
 
 struct Params {
@@ -61,12 +63,15 @@ struct Params {
   long long L;         // pairs per channel row
   long long valid;     // pairs of each row that are read; the rest are 0
   long long n;         // owned samples per block
-  int nchunk;          // chunks per block (n / kChunk)
+  int nchunk;          // chunks per block (ceil(n / kChunk))
+  int vec;             // rows 16-byte aligned: load two pairs at once
   detect::Rule rule;
 };
 
-template <bool kChain>
-__global__ void __launch_bounds__(kThreads)
+// The sps-1 form holds its powers in registers; capped at 64 a thread, four
+// CTAs share an SM, so one's loads and stores overlap another's rule.
+template <bool kChain, bool kFast>
+__global__ void __launch_bounds__(kThreads, kFast ? 4 : 1)
 detect_mask_kernel(Params p) {
   extern __shared__ float smem[];
   const detect::Smem s = detect::carve(smem, p.rule);
@@ -79,38 +84,49 @@ detect_mask_kernel(Params p) {
   const float2* iq = p.iq + (long long)c * p.L;
 
   int wild = 0;  // a NaN, an Inf or a power above kFinitePower
-  for (int u = threadIdx.x; u < len; u += kThreads) {
-    const long long x = d0 + u;
-    float v = 0.f;
-    if (x < p.valid) {
-      const float2 a = iq[x];
-      v = __fmaf_rn(a.x, a.x, __fmul_rn(a.y, a.y));
+  for (int q = threadIdx.x; q < len / 2; q += kThreads) {
+    const long long x = d0 + 2LL * q;
+    float2 a = make_float2(0.f, 0.f), b = make_float2(0.f, 0.f);
+    if (p.vec && x + 1 < p.valid) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(iq + x));
+      a = make_float2(v.x, v.y);
+      b = make_float2(v.z, v.w);
+    } else {
+      if (x < p.valid) a = iq[x];
+      if (x + 1 < p.valid) b = iq[x + 1];
     }
-    wild |= !(v <= detect::kFinitePower);
-    s.m[u] = v;
+    const float pa = __fmaf_rn(a.x, a.x, __fmul_rn(a.y, a.y));
+    const float pb = __fmaf_rn(b.x, b.x, __fmul_rn(b.y, b.y));
+    wild |= !(pa <= detect::kFinitePower) || !(pb <= detect::kFinitePower);
+    s.m[detect::sk(2 * q)] = pa;
+    s.m[detect::sk(2 * q + 1)] = pb;
   }
+  const long long own = p.n - d0;  // owned samples of this chunk that exist
+  const bool mine = (long long)kRun * threadIdx.x < own;
+  const long long at = (long long)c * p.n + d0 + kRun * threadIdx.x;
+  float* ref = mine ? p.ref + at : nullptr;
   // a uniform choice per CTA (detect_body.cuh: kNan)
-  const float* ce =
+  const uint32_t keep =
       __syncthreads_or(wild)
-          ? detect::detect_chunk<false, kChain, true>(s, p.rule)
-          : detect::detect_chunk<false, kChain, false>(s, p.rule);
-
-  int32_t* mask = p.mask + (long long)c * p.n + d0;
-  float* ref = p.ref + (long long)c * p.n + d0;
-  for (int j = threadIdx.x; j < kChunk; j += kThreads) {
-    mask[j] = s.keep[j];
-    ref[j] = detect::ref_at<kChain>(s.m, ce, kLookback + j, p.rule);
+          ? detect::detect_chunk<false, kChain, true, kFast>(s, p.rule, ref)
+          : detect::detect_chunk<false, kChain, false, kFast>(s, p.rule, ref);
+  if (mine) {
+    int4* out = reinterpret_cast<int4*>(p.mask + at);
+#pragma unroll
+    for (int j = 0; j < kRun / 4; ++j)
+      out[j] = make_int4((keep >> (4 * j)) & 1, (keep >> (4 * j + 1)) & 1,
+                         (keep >> (4 * j + 2)) & 1, (keep >> (4 * j + 3)) & 1);
   }
 }
 
-template <bool kChain>
+template <bool kChain, bool kFast>
 cudaError_t launch(const Params& p, int nblk, cudaStream_t s) {
   const int smem = detect::smem_bytes(p.rule);
   cudaError_t err = cudaFuncSetAttribute(
-      detect_mask_kernel<kChain>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      detect_mask_kernel<kChain, kFast>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  detect_mask_kernel<kChain><<<nblk, kThreads, smem, s>>>(p);
+  detect_mask_kernel<kChain, kFast><<<nblk, kThreads, smem, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -120,11 +136,16 @@ extern "C" {
 
 // Launches the kernel on `stream` over C channels, with the 1-D kernel's
 // reference-level form when `chain` is set; returns cudaGetLastError().
-// Allocates nothing and does not synchronise.
+// Allocates nothing and does not synchronise. n must be a multiple of 16,
+// and mask and ref 16-byte aligned.
 int detect_mask_launch(const void* iq, void* mask, void* ref, int channels,
                        long long L, long long valid, long long n, int nchunk,
                        int chain, int sps, int half, int rhalo, float thresh,
                        float ptol, float qtol, float inv_sps, void* stream) {
+  if (n % kRun || half > detect::kMaxHalf ||
+      reinterpret_cast<uintptr_t>(mask) % 16 ||
+      reinterpret_cast<uintptr_t>(ref) % 16)
+    return (int)cudaErrorInvalidValue;
   Params p;
   p.iq = static_cast<const float2*>(iq);
   p.mask = static_cast<int32_t*>(mask);
@@ -133,10 +154,15 @@ int detect_mask_launch(const void* iq, void* mask, void* ref, int channels,
   p.valid = valid;
   p.n = n;
   p.nchunk = nchunk;
+  p.vec = reinterpret_cast<uintptr_t>(iq) % 16 == 0 && L % 2 == 0;
   p.rule = detect::Rule{sps, half, rhalo, thresh, ptol, qtol, inv_sps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nblk = channels * nchunk;
-  return (int)(chain ? launch<true>(p, nblk, s) : launch<false>(p, nblk, s));
+  // at sps 1 the two reference-level forms are one
+  cudaError_t err = detect::fast_rule(p.rule) ? launch<false, true>(p, nblk, s)
+                    : chain ? launch<true, false>(p, nblk, s)
+                            : launch<false, false>(p, nblk, s);
+  return (int)err;
 }
 
 }  // extern "C"

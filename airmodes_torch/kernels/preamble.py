@@ -73,9 +73,8 @@ _HALO_ROWS_I8 = 30                         # rows_w = trows + 32
 CAND_PER_LANE = 4
 CAND_ROWS = 8
 _COUNT_ROW = 4                             # per-lane hit counts live here
-_MAX_PER_LANE = 8                          # hits per lane the kernel keeps
 DEFAULT_NBUF = 2
-_CHUNK = 4096                              # owned samples per B1 CUDA block
+_CHUNK = 4096                              # owned samples per detect CUDA block
 _EARLY_QUIET_CHIPS = (1, 3, 4, 5, 6)       # the quiet chips B5p tests
 
 # kernel launches since the last reset_launches(), per wrapper; only the
@@ -141,18 +140,15 @@ def cand_capacity(tile: int):
 def _cand_params(tile: int, ordered: bool, per_tile=None, per_lane=None):
     """(per_tile, per_lane) of a candidate layout: cand_capacity's values
     where not given, per_lane clamped to the 4 hit rows of the unordered
-    layout, as the reference does. The kernel keeps at most 8 hits per
-    lane column (the most cand_capacity gives) and the ordered rows 0..3
-    hold at most 512 hits; beyond either it raises."""
+    layout, as the reference does, and to the tile's rows on the ordered
+    one (a lane column has no more hits). The ordered rows 0..3 hold at
+    most 512 hits; above that, or below 1 of either, it raises."""
     pt, pl = cand_capacity(tile)
     per_tile = pt if per_tile is None else int(per_tile)
     per_lane = pl if per_lane is None else int(per_lane)
-    if not ordered:
-        per_lane = min(per_lane, _COUNT_ROW)
-    if not 1 <= per_lane <= _MAX_PER_LANE:
-        raise ValueError(f"per_lane must be in [1, {_MAX_PER_LANE}], the "
-                         f"hits per lane column the candidate kernel keeps; "
-                         f"got {per_lane}")
+    if per_lane < 1:
+        raise ValueError(f"per_lane must be >= 1, got {per_lane}")
+    per_lane = min(per_lane, _COUNT_ROW if not ordered else tile // 128)
     if ordered and not 1 <= per_tile <= _COUNT_ROW * 128:
         raise ValueError(f"per_tile must be in [1, {_COUNT_ROW * 128}] "
                          f"(rows 0..3 of the ordered layout); got {per_tile}")
@@ -390,21 +386,23 @@ def _detect_rhalo(cfg: DspConfig, prescreen: bool = False) -> int:
     return -(-need // 32) * 32
 
 
-def detect_cands_buffers(C: int, cfg: DspConfig, tile: int,
-                         ordered: bool = False):
-    """Shapes of the B1/B5 CUDA launch's buffers: (per-chunk scratch: each
-    lane's first 4 hits, 8 for the ordered layout, and its count;
-    output)."""
+def detect_cands_buffers(C: int, cfg: DspConfig, tile: int):
+    """Shapes of the B1/B5 CUDA launch's buffers: (per-chunk scratch: one
+    keep word per lane column, bit r for the chunk's row r; output)."""
     tiles = cfg.block_size // tile
-    rows = (_MAX_PER_LANE if ordered else _COUNT_ROW) + 1
-    return ((C * tiles * (tile // _CHUNK), rows, 128),
+    return ((C * tiles * (tile // _CHUNK), 128),
             (C, tiles, CAND_ROWS, 128))
+
+
+def _aligned16(x: torch.Tensor) -> torch.Tensor:
+    """x, or a copy of it where its data is not 16-byte aligned (the
+    kernels load 16 bytes at a time)."""
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 def _detect_cands_cuda(xi8, xq8, cfg, tile, ordered, prescreen, per_tile,
                        per_lane):
-    s_shape, o_shape = detect_cands_buffers(xi8.shape[0], cfg, tile,
-                                            ordered)
+    s_shape, o_shape = detect_cands_buffers(xi8.shape[0], cfg, tile)
     scratch = torch.empty(s_shape, dtype=torch.int32, device=xi8.device)
     out = torch.empty(o_shape, dtype=torch.int32, device=xi8.device)
     launch_detect_cands(xi8, xq8, cfg, tile, scratch, out, ordered=ordered,
@@ -418,8 +416,8 @@ def launch_detect_cands(xi8, xq8, cfg, tile, scratch, out,
                         per_tile: int = None, per_lane: int = None) -> None:
     """Launch B1 (or B5o with ordered, B5p with prescreen) on contiguous
     CUDA inputs into the given contiguous int32 buffers (shapes from
-    `detect_cands_buffers` with the same `ordered`); every element of both
-    is written."""
+    `detect_cands_buffers`); every element of both is written. The planar
+    rows must be 16-byte aligned."""
     from . import _ext
     per_tile, per_lane = _cand_params(tile, ordered, per_tile, per_lane)
     C, p = xi8.shape
@@ -431,7 +429,7 @@ def launch_detect_cands(xi8, xq8, cfg, tile, scratch, out,
     if cfg.block_size + _LOOKBACK + rhalo > p:
         raise ValueError("planar rows too short for the detect kernel")
     if (tuple(scratch.shape), tuple(out.shape)) != \
-            detect_cands_buffers(C, cfg, tile, ordered) \
+            detect_cands_buffers(C, cfg, tile) \
             or not (scratch.is_contiguous() and out.is_contiguous()):
         raise ValueError("B1 buffers of the wrong shape or not contiguous")
     thresh = _prescreen_threshold(cfg) if prescreen else _f32(cfg.threshold)
@@ -464,7 +462,7 @@ def preamble_detect_cands_planar(xi8: torch.Tensor, xq8: torch.Tensor,
     reference's default is True): each lane column's first per_lane (<= 4)
     hits in rows 0..per_lane-1. ordered=True (B5o): the tile's earliest
     per_tile (<= 512) hits, ascending, in rows 0..3, taken from each lane
-    column's first per_lane (<= 8). prescreen=True (B5p): the stage-A rule
+    column's first per_lane (any number). prescreen=True (B5p): the stage-A rule
     (`_prescreen_plain`) in place of the full rule. Row 4 holds the
     per-lane hit counts. `nbuf` and `double_buffer` are the reference's
     TPU prefetch depth; they change nothing in the result, and the CUDA
@@ -490,8 +488,9 @@ def preamble_detect_cands_planar(xi8: torch.Tensor, xq8: torch.Tensor,
                                   per_tile, per_lane)
     if xi8.device.type != "cuda":
         raise ValueError(f"unsupported device {xi8.device}")
-    return _detect_cands_cuda(xi8.contiguous(), xq8.contiguous(), cfg, tile,
-                              ordered, prescreen, per_tile, per_lane)
+    xi8, xq8 = (_aligned16(a.contiguous()) for a in (xi8, xq8))
+    return _detect_cands_cuda(xi8, xq8, cfg, tile, ordered, prescreen,
+                              per_tile, per_lane)
 
 
 def compact_candidates(cands: torch.Tensor, cfg: DspConfig, tile: int,
@@ -917,13 +916,15 @@ def launch_detect_mask(x, valid, cfg, mask, ref, one_d: bool = False) -> None:
     """Launch B3/B4 (B6 with one_d: its reference-level form) on a
     contiguous CUDA (C, L, 2) f32 tensor, of which the first `valid`
     samples per channel count, into the contiguous (C, N) int32 mask and
-    f32 ref buffers; every element of both is written. The kernel has no
-    sps limit; the 2-D wrappers apply the reference's."""
+    f32 ref buffers (16-byte aligned); every element of both is written.
+    The block may be any multiple of 1024 samples, as the reference's
+    tiles. The kernel has no sps limit; the 2-D wrappers apply the
+    reference's."""
     from . import _ext
     C, L = x.shape[0], x.shape[1]
     n = cfg.block_size
-    if n % _CHUNK:
-        raise ValueError("block_size must be a multiple of 4096")
+    if n % 1024:
+        raise ValueError("block_size must be a multiple of 1024")
     if x.dtype != torch.float32 or x.dim() != 3 or x.shape[2] != 2 \
             or not x.is_contiguous() or x.data_ptr() % 8:
         raise ValueError("B3/B4 input must be contiguous, 8-byte aligned "
@@ -937,7 +938,7 @@ def launch_detect_mask(x, valid, cfg, mask, ref, one_d: bool = False) -> None:
     with torch.cuda.device(x.device):
         rc = lib.detect_mask_launch(
             x.data_ptr(), mask.data_ptr(), ref.data_ptr(), C, L,
-            min(int(valid), L), n, n // _CHUNK, int(one_d), cfg.sps,
+            min(int(valid), L), n, -(-n // _CHUNK), int(one_d), cfg.sps,
             cfg.nms_chips * cfg.sps, _detect_rhalo(cfg), _f32(cfg.threshold),
             _f32(cfg.pulse_tolerance), _f32(cfg.quiet_tolerance),
             _f32(1.0 / cfg.sps),

@@ -65,10 +65,12 @@ import sys
 import tempfile
 import time
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and f32
-# outside the tensor cores
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, and f32
+# outside the tensor cores: 67 TFLOP/s counts an FMA as two operations, so
+# the card issues f32 instructions (an add, a compare, a max or an FMA
+# alike) at half that rate, 132 SMs x 128 lanes x the clock
 PEAK_BYTES_S = 3.35e12
-PEAK_F32_S = 67e12
+PEAK_F32_INSTR_S = 67e12 / 2
 N_MAIN_BLOCKS = 32
 BATCH = 8
 REPEAT = 100                 # guarded kernel-vs-plain runs per input
@@ -107,9 +109,10 @@ def frame_planar(iq, cfg, n_blocks, gain):
 
 
 def mixed_capture(cfg, n_blocks, msg_rate_hz=100.0, snr_db=15.0, seed=0,
-                  spacing=None):
+                  spacing=None, planar=True):
     """Mixed traffic (every supported DF) over n_blocks blocks, AGC to a
-    peak of 120; spacing defaults to the message rate's."""
+    peak of 120, as ((planar I, Q) or None, f32 blocks), truth; spacing
+    defaults to the message rate's."""
     import numpy as np
     from airmodes_torch.testing import encoder
     total = n_blocks * cfg.block_size
@@ -123,7 +126,7 @@ def mixed_capture(cfg, n_blocks, msg_rate_hz=100.0, snr_db=15.0, seed=0,
         frames, rate=cfg.channel_rate, snr_db=snr_db, spacing=spacing,
         seed=seed, total_samples=total)
     gain = 120.0 / (float(np.max(np.abs(iq))) or 1.0)
-    return (frame_planar(iq, cfg, n_blocks, gain),
+    return (frame_planar(iq, cfg, n_blocks, gain) if planar else None,
             frame_f32(iq, cfg, n_blocks, gain / 127.0)), truth
 
 
@@ -213,30 +216,42 @@ def time_ms(fn, iters=20, flush=None, device_only=True):
 
 
 def b1_ops_per_sample(sps: int, half: int) -> int:
-    """f32 operations B1 needs per owned sample (compare, min and max count
-    one, an FMA two): power 5, window fold 7, chip energy sps (sps > 1),
-    pulse/threshold/quiet tests 28, NMS 2*half + 2."""
+    """f32 instructions B1 needs per owned sample (an add, product,
+    compare, min, max or FMA is one): power 4 (two int8 scalings, a
+    product, an FMA), window fold 7, chip energy sps (sps > 1: sps - 1 adds
+    and the scale), tests 27 (reference level 4, noise level 1, peak 2,
+    pulse minimum 3, threshold and tolerance 4, quiet maximum over 12
+    chips 11 and its tolerance 2), NMS 2*half maxima and 2 compares."""
+    return 4 + 7 + (sps if sps > 1 else 0) + 27 + 2 * half + 2
+
+
+def b1_ops_parent(sps: int, half: int) -> int:
+    """The count this script used until it took instructions: operations,
+    an FMA as two, over the 67 TFLOP/s rate (kept to print the change of
+    yardstick once)."""
     return 5 + 7 + (sps if sps > 1 else 0) + 28 + 2 * half + 2
 
 
 def b34_ops_per_sample(sps: int, half: int) -> int:
-    """As B1's, with the power of an f32 pair taking 3 (no int8 scaling)."""
+    """As B1's, with the power of an f32 pair taking 2 (no int8 scaling)."""
     return b1_ops_per_sample(sps, half) - 2
 
 
 def b5p_ops_per_sample(sps: int) -> int:
     """B5p's: B1's without the NMS and with 5 quiet chips of 12 (the quiet
-    fold 4 maxima, not 11)."""
-    return 5 + 7 + (sps if sps > 1 else 0) + 28 - 7
+    maximum 4 maxima, not 11)."""
+    return 4 + 7 + (sps if sps > 1 else 0) + 27 - 7
 
 
 def b6_ops_per_sample(sps: int, half: int) -> int:
-    """B6's: B3/B4's, the reference level's FMA form taking 4 more at
-    sps > 1 (scale each pulse's chip sum: 1 product + 3 FMAs, not 1)."""
-    return b34_ops_per_sample(sps, half) + (4 if sps > 1 else 0)
+    """B6's: B3/B4's, the reference level's FMA form taking one more at
+    sps > 1 (a product and 3 FMAs before the final scale, not an FMA and
+    2 adds)."""
+    return b34_ops_per_sample(sps, half) + (1 if sps > 1 else 0)
 
 
-VARIANTS = {"B1": {}, "B5o": {"ordered": True}, "B5p": {"prescreen": True}}
+VARIANTS = {"B1": {}, "B5o": {"ordered": True}, "B5p": {"prescreen": True},
+            "B5o per_lane 12": {"ordered": True, "per_lane": 12}}
 
 
 # --- phases ------------------------------------------------------------------
@@ -378,8 +393,7 @@ def phase_repeat(cfg, b1_out, dev, iters, variant="B1"):
         base = torch.where(valid, chan0 * p + cfg.left_halo + det
                            - cfg.noise_window, -1).reshape(-1).to(torch.int32)
         ri, rq = ti.reshape(-1, 128), tq.reshape(-1, 128)
-        s_shape, o_shape = K.detect_cands_buffers(C, cfg, tile,
-                                                  kw.get("ordered", False))
+        s_shape, o_shape = K.detect_cands_buffers(C, cfg, tile)
         w_shape = (base.numel(), pad_rows * 128)
         for it in range(iters):
             churn = torch.full((int(rng.integers(1, 1 << 22)),), CANARY,
@@ -423,20 +437,21 @@ def _ref_equal(got, want) -> bool:
         torch.where(nan, 0.0, want).view(torch.int32))
 
 
-def phase_b34(cfg, inputs, dev, flush, one_d=False):
+def phase_b34(cfg, inputs, dev, flush, one_d=False, tile=None):
     """B3/B4 kernel (B6 with one_d) vs plain on the card for each named
     (C, L, 2) input (C = 1 takes the one-block wrapper, C > 1 the batch
-    wrapper): mask and ref bit for bit. Returns ({name: operands}, max abs
-    error, {C: timing of the first f32 input with that C})."""
+    wrapper), at `tile` (default: the runners' choice): mask and ref bit
+    for bit. Returns ({name: operands}, max abs error, {C: timing of the
+    first f32 input with that C})."""
     import torch
     from airmodes_torch.kernels import preamble as K
     if one_d:
-        kid, tile = "B6", 16384
+        kid, tile = "B6", tile or 16384
         one_ops, one, batch_ops, batch = (
             K.b6_operands, K.preamble_detect_1d, K.b6_operands,
             K.preamble_detect_1d_batch)
     else:
-        kid, tile = "B3/B4", K.supported_2d_tile(cfg)
+        kid, tile = "B3/B4", tile or K.supported_2d_tile(cfg)
         one_ops, one, batch_ops, batch = (
             K.b3_operands, K.preamble_detect_2d, K.b4_operands,
             K.preamble_detect_2d_batch)
@@ -986,6 +1001,7 @@ def main() -> int:
     import numpy as np
     from airmodes_torch.config import DspConfig
     from airmodes_torch.kernels import _ext
+    from airmodes_torch.kernels import preamble as K
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -998,7 +1014,8 @@ def main() -> int:
     print(f"kernels built in {build_s:.2f} s", flush=True)
     for name in _ext.SIGNATURES:
         for line in _ext.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry" in line):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
 
@@ -1027,6 +1044,20 @@ def main() -> int:
                                  variant)
         b5[variant] = (max(err, err2), timing)
         b5_out[variant] = (out, out2)
+    # the ordered layout past 8 hits per lane column: frames every 2048
+    # samples start on one lane column, which spills past per_lane = 12
+    (spill, _), _ = mixed_capture(cfg, BATCH, snr_db=12.0, seed=5,
+                                  spacing=2048)
+    b5o12_out, err, _ = phase_b1(cfg, {"lane spill": spill}, dev, flush,
+                                 "B5o per_lane 12")
+    b5["B5o"] = (max(b5["B5o"][0], err), b5["B5o"][1])
+    most = int(K.detect_cands_plain(
+        *b5o12_out["lane spill"][:2], cfg, K.default_tile(cfg), ordered=True,
+        per_lane=12)[:, :, 4].max())
+    print(f"B5o per_lane 12: the fullest lane column holds {most} hits of "
+          f"a tile", flush=True)
+    if most <= 12:
+        raise AssertionError("the spill input did not spill past 12 hits")
 
     b2_err, b2_t = phase_b2(cfg, {k: b1_out[k] for k in ("mixed", "dense")},
                             flush)
@@ -1056,7 +1087,16 @@ def main() -> int:
         cfg10, {"mixed": tf, "mixed[0]": tf[:1],
                 "mixed int8": wire(tf, np.int8)}, dev, flush, one_d=True)
     b6_err = max(b6_err, err2, err10)
-    del mf, df, sf, tf, b34_in, b6_in, nan_blk
+    # a block of 1023 x 1024 samples: any multiple of 1024, as the
+    # reference's tiles; the last chunk of each channel is ragged
+    cfg_big = DspConfig(block_size=1023 * 1024)
+    (_, bf), _ = mixed_capture(cfg_big, BATCH, seed=8, planar=False)
+    big_in = {"mixed 1023x1024": bf, "mixed[0] 1023x1024": bf[:1]}
+    big_out, err, _ = phase_b34(cfg_big, big_in, dev, flush, tile=1024)
+    big6_out, err6, _ = phase_b34(cfg_big, big_in, dev, flush, one_d=True,
+                                  tile=1024)
+    b34_err, b6_err = max(b34_err, err), max(b6_err, err6)
+    del mf, df, sf, tf, bf, b34_in, b6_in, nan_blk, big_in
 
     phase_repeat(cfg, b1_out, dev, REPEAT)
     phase_repeat(cfg2, b1_out2, dev, REPEAT)
@@ -1072,7 +1112,11 @@ def main() -> int:
                      one_d=True)
     phase_repeat_b34(cfg10, {"mixed": b6_out10["mixed"]}, dev, REPEAT,
                      one_d=True)
+    phase_repeat(cfg, b5o12_out, dev, REPEAT, "B5o per_lane 12")
+    phase_repeat_b34(cfg_big, big_out, dev, REPEAT)
+    phase_repeat_b34(cfg_big, big6_out, dev, REPEAT, one_d=True)
     del b1_out, b1_out2, b5_out, b34_out, b34_out2, b6_out, b6_out2, b6_out10
+    del b5o12_out, big_out, big6_out
 
     with tempfile.TemporaryDirectory() as tmp:
         launches, truth = phase_main(cfg, dev, tmp, smi)
@@ -1084,7 +1128,7 @@ def main() -> int:
                                truth, tmp, smi)
 
     def bound(n_bytes, n_ops):
-        mem_s, ops_s = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_S
+        mem_s, ops_s = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_INSTR_S
         return (max(mem_s, ops_s) * 1e3,
                 "bytes" if mem_s >= ops_s else "operations")
 
@@ -1093,6 +1137,13 @@ def main() -> int:
     b1_out_bytes = BATCH * (cfg.block_size // 131072) * 8 * 128 * 4
     b1_bound, b1_by = bound(b1_bytes + b1_out_bytes,
                             b1_samples * b1_ops_per_sample(cfg.sps, half))
+    print(f"yardstick: B1's operation bound was "
+          f"{b1_samples * b1_ops_parent(cfg.sps, half) / 67e12 * 1e3:.5f} ms "
+          f"({b1_ops_parent(cfg.sps, half)} operations per sample, an FMA "
+          f"as two, over 67 TFLOP/s); it is now "
+          f"{b1_samples * b1_ops_per_sample(cfg.sps, half) / PEAK_F32_INSTR_S * 1e3:.5f}"
+          f" ms ({b1_ops_per_sample(cfg.sps, half)} f32 instructions per "
+          f"sample over {PEAK_F32_INSTR_S / 1e12:.1f} T/s)", flush=True)
     b2_ms, b2_plain, b2_lib, b2_in, b2_out = b2_t
     b2_bound, b2_by = bound(2 * b2_in + 4 * b2_out, 5 * b2_in)
     kernels = [
@@ -1147,6 +1198,9 @@ def main() -> int:
           f"{plain_ms:.3f} ms, bound {bms:.5f} ms ({by}; "
           f"{b6_ops_per_sample(cfg10.sps, half10)} operations per sample) "
           f"[{smi}]", flush=True)
+    for k in kernels:
+        print(f"bound share: {k['name']}: {k['bound_ms'] / k['ms']:.3f} of "
+              f"its bound ({k['bound_by']}) [{smi}]", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -109,6 +109,23 @@ def test_detect_1d_int8_and_short_input_match_jax(captures, batch):
         _assert_detect_equal(got, want)
 
 
+@pytest.mark.parametrize("batch", [False, True])
+def test_detect_1d_block_5x1024_matches_jax(batch):
+    """A block of 5 x 1024 samples at tile 1024 (the port's CUDA form took
+    only multiples of 4096 before): B6 equals the reference's mask and ref
+    bit for bit."""
+    jc, tc = _cfgs(block_size=5 * 1024)
+    x = _blocks(jc, seed=74)
+    if batch:
+        want = JK.preamble_detect_pallas_batch(x, jc, tile=1024,
+                                               interpret=True)
+        got = TK.preamble_detect_1d_batch(_t(x), tc, tile=1024)
+    else:
+        want = JK.preamble_detect_pallas(x[0], jc, tile=1024, interpret=True)
+        got = TK.preamble_detect_1d(_t(x[0]), tc, tile=1024)
+    _assert_detect_equal(got, want)
+
+
 def test_detect_1d_has_no_sps_gate():
     """B3 refuses sps 10 (the reference's 2-D row-borrow limit); B6 takes
     it, as the reference does."""
@@ -224,3 +241,17 @@ def test_cuda_detect_1d_matches_plain(cuda, captures, rate):
     got = TK.demod_batch_packed_1d(xc, tc, tile=TILE, device=cuda)
     want = TK.demod_batch_packed_1d(x, tc, tile=TILE, device="cpu")
     _assert_packed_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [2e6, 20e6])
+def test_cuda_detect_1d_block_5x1024_matches_plain(cuda, rate):
+    """B6 on the card at block_size 5 x 1024, tile 1024 (a ragged last
+    chunk): one block and a batch equal to the plain version."""
+    jc, tc = _cfgs(channel_rate=rate, block_size=5 * 1024)
+    x = _t(_blocks(jc, seed=75))
+    for fn, a in ((TK.preamble_detect_1d_batch, x), (TK.preamble_detect_1d,
+                                                      x[0])):
+        got, want = fn(a.to(cuda), tc, tile=1024), fn(a, tc, tile=1024)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())

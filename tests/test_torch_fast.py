@@ -142,6 +142,24 @@ def test_detect_2d_short_input_matches_jax(captures):
                                                      tile=TILE), want)
 
 
+@pytest.mark.parametrize("batch", [False, True])
+def test_detect_2d_block_5x1024_matches_jax(batch):
+    """A block of 5 x 1024 samples at tile 1024, the reference's smallest
+    (the port's CUDA form took only multiples of 4096 before): B3 and B4
+    equal the reference's mask and ref exactly."""
+    jc, tc = _cfgs(block_size=5 * 1024)
+    x = _blocks(jc, seed=64)
+    if batch:
+        want = JK.preamble_detect_pallas_2d_batch(x, jc, tile=1024,
+                                                  interpret=True)
+        got = TK.preamble_detect_2d_batch(_t(x), tc, tile=1024)
+    else:
+        want = JK.preamble_detect_pallas_2d(x[0], jc, tile=1024,
+                                            interpret=True)
+        got = TK.preamble_detect_2d(_t(x[0]), tc, tile=1024)
+    _assert_detect_equal(got, want)
+
+
 # --- the path end to end -----------------------------------------------------
 
 def _assert_packed_equal(got, want):
@@ -258,3 +276,26 @@ def test_cuda_detect_mask_matches_plain(cuda, captures, rate):
     got = TK.demod_batch_packed_fast(xc, tc, tile=TILE, device=cuda)
     want = TK.demod_batch_packed_fast(x, tc, tile=TILE, device="cpu")
     _assert_packed_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("blocks", [5, 1023])
+def test_cuda_detect_mask_ragged_block_matches_plain(cuda, blocks):
+    """B3, B4 and B6 on the card at block_size = blocks x 1024 (the last
+    4096-sample chunk ragged), one block and C = 8: mask and ref equal to
+    their plain version."""
+    jc, tc = _cfgs(block_size=blocks * 1024)
+    n_frames = max(12, 8 * jc.block_size // 20000)
+    frames = encoder.random_mixed_frames(n_frames, seed=66)
+    iq, _ = encoder.make_capture(frames, rate=jc.channel_rate, snr_db=16.0,
+                                 spacing=min(1300, jc.block_size // 4),
+                                 seed=66)
+    out = [JP.iq_to_device_layout(b) for b, _ in sources.frame_blocks(iq, jc)]
+    x = _t(np.stack((out * 8)[:8]))
+    xc = x.to(cuda)
+    for fn in (TK.preamble_detect_2d_batch, TK.preamble_detect_1d_batch):
+        for a, b in ((xc, x), (xc[:1], x[:1])):
+            got, want = fn(a, tc, tile=1024), fn(b, tc, tile=1024)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+            assert int(want[0].sum()) > 0

@@ -89,6 +89,19 @@ def test_ordered_cands_plain_matches_jax(captures, case):
     assert want[:, :, 4].sum() > 0
 
 
+def _lane_spill(jc):
+    """One block at the default tile (131072) of a dense channel whose
+    frames all start on one lane column (44 hits in it), planar int8."""
+    tile = JK.default_tile(jc)
+    frames = encoder.random_mixed_frames(60, seed=5)
+    iq, _ = encoder.make_capture(frames, snr_db=9.0, spacing=2048, seed=5,
+                                 total_samples=jc.block_size)
+    x = JP.iq_to_device_layout(next(sources.frame_blocks(iq, jc))[0])
+    x8 = np.clip(np.round(x * 120.0 / np.max(np.abs(x))), -127,
+                 127).astype(np.int8)
+    return JK.to_planar_i8(x8, jc, tile=tile)
+
+
 def test_ordered_cands_lane_overflow_matches_jax():
     """At the default tile (131072: per_lane 8, per_tile 128), a dense
     channel whose frames all start on one lane column spills that lane
@@ -97,16 +110,24 @@ def test_ordered_cands_lane_overflow_matches_jax():
     jc, tc = _cfgs(block_size=1 << 17)
     tile = JK.default_tile(jc)
     assert tile == 1 << 17 and JK.cand_capacity(tile) == (128, 8)
-    frames = encoder.random_mixed_frames(60, seed=5)
-    iq, _ = encoder.make_capture(frames, snr_db=9.0, spacing=2048, seed=5,
-                                 total_samples=jc.block_size)
-    x = JP.iq_to_device_layout(next(sources.frame_blocks(iq, jc))[0])
-    x8 = np.clip(np.round(x * 120.0 / np.max(np.abs(x))), -127,
-                 127).astype(np.int8)
-    xi, xq = JK.to_planar_i8(x8, jc, tile=tile)
+    xi, xq = _lane_spill(jc)
     got, want = _cands_pair(jc, tc, xi, xq, tile=tile, ordered=True)
     np.testing.assert_array_equal(got, want)
     assert want[0, 0, 4].max() > 8
+
+
+@pytest.mark.parametrize("per_lane", [12, 40])
+def test_ordered_per_lane_above_8_matches_jax(per_lane):
+    """The ordered layout takes any per_lane, as the reference's
+    _extract_cands does (the port raised above 8 before): the lane column
+    with 44 hits keeps its first per_lane, exactly as the reference."""
+    jc, tc = _cfgs(block_size=1 << 17)
+    xi, xq = _lane_spill(jc)
+    got, want = _cands_pair(jc, tc, xi, xq, tile=1 << 17, ordered=True,
+                            per_lane=per_lane)
+    np.testing.assert_array_equal(got, want)
+    assert want[0, 0, 4].max() > per_lane
+    assert (want[0, 0, :4] < (1 << 17)).sum() == per_lane
 
 
 @pytest.mark.parametrize("case", [2e6, 10e6, "dense"])
@@ -227,6 +248,7 @@ def _packed_pair(jc, tc, xi, xq, **kw):
 @pytest.mark.parametrize("case,kw", [
     (2e6, {"ordered": True}),
     ("dense", {"ordered": True, "per_tile": 16, "per_lane": 2}),
+    ("dense", {"ordered": True, "per_tile": 64, "per_lane": 12}),
     (2e6, {"prescreen": True}),
     ("dense", {"prescreen": True}),
     (10e6, {"prescreen": True}),
@@ -261,14 +283,20 @@ def test_prescreen_k2_below_k_raises(captures):
 
 
 def test_candidate_limits_raise(captures):
-    """per_lane above the 8 the kernel keeps, and per_tile above the 512
-    of the ordered rows, raise and name the limit; the unordered layout
-    clamps per_lane to 4, as the reference does."""
+    """per_lane below 1, and per_tile above the 512 of the ordered rows,
+    raise and name the limit; the unordered layout clamps per_lane to 4,
+    as the reference does, and the ordered one to the tile's rows (a lane
+    column holds no more hits)."""
     _, tc = _cfgs(block_size=1 << 14)
     xi, xq = (_t(a) for a in captures[2e6])
-    with pytest.raises(ValueError, match=r"per_lane must be in \[1, 8\]"):
+    with pytest.raises(ValueError, match=r"per_lane must be >= 1"):
         TK.preamble_detect_cands_planar(xi, xq, tc, tile=TILE, ordered=True,
-                                        per_lane=9)
+                                        per_lane=0)
+    a = TK.preamble_detect_cands_planar(xi, xq, tc, tile=TILE, ordered=True,
+                                        per_lane=1000)
+    b = TK.preamble_detect_cands_planar(xi, xq, tc, tile=TILE, ordered=True,
+                                        per_lane=TILE // 128)
+    assert torch.equal(a, b)
     with pytest.raises(ValueError, match=r"per_tile must be in \[1, 512\]"):
         TK.preamble_detect_cands_planar(xi, xq, tc, tile=TILE, ordered=True,
                                         per_tile=513)
@@ -303,3 +331,15 @@ def test_cuda_variants_match_plain(cuda, captures, kw):
     want = TK.demod_batch_packed_planar(xi, xq, tc, tile=TILE, device="cpu",
                                         **kw)
     _assert_packed_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.gpu
+def test_cuda_ordered_per_lane_12_matches_plain(cuda):
+    """B5o on the card at per_lane 12, tile 131072, on the lane spill:
+    equal to its plain version."""
+    _, tc = _cfgs(block_size=1 << 17)
+    xi, xq = (_t(a) for a in _lane_spill(_cfgs(block_size=1 << 17)[0]))
+    kw = {"tile": 1 << 17, "ordered": True, "per_lane": 12}
+    got = TK.preamble_detect_cands_planar(xi.to(cuda), xq.to(cuda), tc, **kw)
+    want = TK.preamble_detect_cands_planar(xi, xq, tc, **kw)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
