@@ -9,10 +9,12 @@ rows (I and Q) of `planar_length(cfg)` samples: `left_halo` samples of
 history, the owned block, the right halo and a zero margin. Then, per batch
 of C channels (`demod_batch_planar` and its options):
 
-  B1 `preamble_detect_cands_planar`  (C, P) int8 x2 -> (C, tiles, 8, 128)
+  B1 `preamble_detect_cands_planar(ordered=False)`
+                                     (C, P) int8 x2 -> (C, tiles, 8, 128)
      per-lane candidate blocks (first 4 hits per tile lane column + counts)
   `compact_candidates_unordered`     -> the earliest K detections, counts
-  B2 `slice_windows_planar`          -> one f32 power window per detection
+  B2 `_slice_windows`                -> one f32 power window per detection,
+                                        out_rows*128 columns wide
   `_tail_from_power`                 -> bits, confidence, CRC/ECC, table
 
   ordered=True: B5o, the same kernel emitting each tile's earliest
@@ -364,7 +366,7 @@ def _extract_ordered_plain(keep: torch.Tensor, tile: int, per_tile: int,
 
 
 def detect_cands_plain(xi8: torch.Tensor, xq8: torch.Tensor, cfg: DspConfig,
-                       tile: int, ordered: bool = False,
+                       tile: int, ordered: bool = True,
                        prescreen: bool = False, per_tile: int = None,
                        per_lane: int = None) -> torch.Tensor:
     """Plain PyTorch version of kernels B1, B5o (ordered) and B5p
@@ -412,7 +414,7 @@ def _detect_cands_cuda(xi8, xq8, cfg, tile, ordered, prescreen, per_tile,
 
 
 def launch_detect_cands(xi8, xq8, cfg, tile, scratch, out,
-                        ordered: bool = False, prescreen: bool = False,
+                        ordered: bool = True, prescreen: bool = False,
                         per_tile: int = None, per_lane: int = None) -> None:
     """Launch B1 (or B5o with ordered, B5p with prescreen) on contiguous
     CUDA inputs into the given contiguous int32 buffers (shapes from
@@ -453,20 +455,20 @@ def preamble_detect_cands_planar(xi8: torch.Tensor, xq8: torch.Tensor,
                                  nbuf: int = DEFAULT_NBUF, *,
                                  double_buffer: bool = False,
                                  per_tile: int = None, per_lane: int = None,
-                                 ordered: bool = False,
+                                 ordered: bool = True,
                                  prescreen: bool = False) -> torch.Tensor:
     """Kernel B1: (C, P) int8 planar I/Q (P = planar_length(cfg, tile)) ->
     (C, tiles, 8, 128) int32 candidate blocks.
 
-    ordered=False (the port's default, the production layout; the
-    reference's default is True): each lane column's first per_lane (<= 4)
-    hits in rows 0..per_lane-1. ordered=True (B5o): the tile's earliest
-    per_tile (<= 512) hits, ascending, in rows 0..3, taken from each lane
-    column's first per_lane (any number). prescreen=True (B5p): the stage-A rule
-    (`_prescreen_plain`) in place of the full rule. Row 4 holds the
-    per-lane hit counts. `nbuf` and `double_buffer` are the reference's
-    TPU prefetch depth; they change nothing in the result, and the CUDA
-    kernel has one form for every value."""
+    ordered=True (B5o, the default, as the reference's): the tile's
+    earliest per_tile (<= 512) hits, ascending, in rows 0..3, taken from
+    each lane column's first per_lane (any number). ordered=False (B1, the
+    production layout the demod paths ask for): each lane column's first
+    per_lane (<= 4) hits in rows 0..per_lane-1. prescreen=True (B5p): the
+    stage-A rule (`_prescreen_plain`) in place of the full rule. Row 4
+    holds the per-lane hit counts. `nbuf` and `double_buffer` are the
+    reference's TPU prefetch depth; they change nothing in the result, and
+    the CUDA kernel has one form for every value."""
     if tile is None:
         tile = default_tile(cfg)
     _check_limits(cfg)
@@ -579,56 +581,60 @@ def compact_candidates_unordered(cands: torch.Tensor, cfg: DspConfig,
 
 # --- kernel B2: per-detection power windows ----------------------------------
 
-def slice_windows_plain(ri: torch.Tensor, rq: torch.Tensor,
-                        base: torch.Tensor, cfg: DspConfig,
-                        extra: int = 0) -> torch.Tensor:
-    """Plain PyTorch version of kernel B2 (advanced indexing)."""
+def _slice_cols(cfg: DspConfig, extra: int = 0, main: bool = True) -> int:
+    """Columns of B2's output: out_rows*128 on the demod paths (`main`),
+    which read none past W; pad_rows*128 (rounded up to the TPU's 8-row
+    tile) in the reference's shape, which `slice_windows_planar` keeps."""
     _, out_rows, pad_rows, _ = _slice_geometry(cfg, extra)
+    return (out_rows if main else pad_rows) * 128
+
+
+def slice_windows_plain(ri: torch.Tensor, rq: torch.Tensor,
+                        base: torch.Tensor, cfg: DspConfig, extra: int = 0,
+                        cols: int = None) -> torch.Tensor:
+    """Plain PyTorch version of kernel B2 (advanced indexing), `cols`
+    output columns (default the reference's, `_slice_cols(main=False)`)."""
+    out_len = _slice_cols(cfg, extra)
+    if cols is None:
+        cols = _slice_cols(cfg, extra, main=False)
     fi, fq = ri.reshape(-1), rq.reshape(-1)
     total = fi.shape[0]
-    j = torch.arange(out_rows * 128, dtype=torch.int64, device=base.device)
+    j = torch.arange(out_len, dtype=torch.int64, device=base.device)
     b = base.to(torch.int64)[:, None]
     idx = b + j
     inside = (b >= 0) & (idx < total)
     safe = torch.where(inside, idx, 0)
     w = torch.where(inside, power_i8(fi[safe], fq[safe]), 0.0)
-    return torch.nn.functional.pad(w, (0, (pad_rows - out_rows) * 128))
-
-
-def _slice_windows_cuda(ri, rq, base, cfg, extra):
-    out = torch.empty((base.shape[0], _slice_geometry(cfg, extra)[2] * 128),
-                      dtype=torch.float32, device=ri.device)
-    launch_slice_windows(ri, rq, base, cfg, out, extra=extra)
-    return out
+    return torch.nn.functional.pad(w, (0, cols - out_len))
 
 
 def launch_slice_windows(ri, rq, base, cfg, out, extra: int = 0) -> None:
-    """Launch B2 on contiguous CUDA inputs into the given contiguous
-    (n, pad_rows*128) f32 buffer; every element of it is written."""
+    """Launch B2 on contiguous CUDA inputs (streams 16-byte aligned) into
+    the given contiguous, 16-byte aligned (n, cols) f32 buffer, cols a
+    multiple of 128 of at least out_rows*128; every element of it is
+    written."""
     from . import _ext
-    _, out_rows, pad_rows, _ = _slice_geometry(cfg, extra)
+    out_len = _slice_cols(cfg, extra)
     n = base.shape[0]
-    if tuple(out.shape) != (n, pad_rows * 128) or not out.is_contiguous():
+    if out.dim() != 2 or out.shape[0] != n or out.shape[1] % 128 \
+            or out.shape[1] < out_len or not out.is_contiguous():
         raise ValueError("B2 output of the wrong shape or not contiguous")
+    if (ri.data_ptr() | rq.data_ptr() | out.data_ptr()) % 16:
+        raise ValueError("B2 streams and output must be 16-byte aligned")
     lib = _ext.lib("slice_windows")
     with torch.cuda.device(ri.device):
         rc = lib.slice_windows_launch(
             ri.data_ptr(), rq.data_ptr(), base.data_ptr(), out.data_ptr(),
-            n, ri.numel(), out_rows * 128, pad_rows * 128,
-            _f32(1.0 / 127.0),
+            n, ri.numel(), out_len, out.shape[1], _f32(1.0 / 127.0),
             torch.cuda.current_stream(ri.device).cuda_stream)
     _ext.check(rc, "slice_windows")
     LAUNCHES["slice_windows"] += 1
 
 
-def slice_windows_planar(ri: torch.Tensor, rq: torch.Tensor,
-                         base: torch.Tensor, cfg: DspConfig,
-                         extra: int = 0) -> torch.Tensor:
-    """Kernel B2: (rows, 128) int8 planar streams + (n,) int32 window
-    starts (flat sample index; < 0 = empty row) -> (n, pad_rows*128) f32
-    power windows, window sample j at column j, zeros past out_rows*128.
-    `extra` widens the window by 2*extra samples (the prescreen path's
-    stage-B windows)."""
+def _slice_windows(ri: torch.Tensor, rq: torch.Tensor, base: torch.Tensor,
+                   cfg: DspConfig, extra: int, cols: int) -> torch.Tensor:
+    """B2 into `cols` columns (`_slice_cols`) on the inputs' device: the
+    kernel for CUDA tensors, the plain version for CPU tensors."""
     if ri.dtype != torch.int8 or rq.dtype != torch.int8 \
             or ri.shape != rq.shape:
         raise TypeError("planar streams must be two int8 arrays of one shape")
@@ -637,11 +643,27 @@ def slice_windows_planar(ri: torch.Tensor, rq: torch.Tensor,
     if not (ri.device == rq.device == base.device):
         raise ValueError("streams and starts must be on one device")
     if ri.device.type == "cpu":
-        return slice_windows_plain(ri, rq, base, cfg, extra)
+        return slice_windows_plain(ri, rq, base, cfg, extra, cols)
     if ri.device.type != "cuda":
         raise ValueError(f"unsupported device {ri.device}")
-    return _slice_windows_cuda(ri.contiguous(), rq.contiguous(),
-                               base.contiguous(), cfg, extra)
+    out = torch.empty((base.shape[0], cols), dtype=torch.float32,
+                      device=ri.device)
+    ri, rq = (_aligned16(a.contiguous()) for a in (ri, rq))
+    launch_slice_windows(ri, rq, base.contiguous(), cfg, out, extra=extra)
+    return out
+
+
+def slice_windows_planar(ri: torch.Tensor, rq: torch.Tensor,
+                         base: torch.Tensor, cfg: DspConfig,
+                         extra: int = 0) -> torch.Tensor:
+    """Kernel B2: (rows, 128) int8 planar streams + (n,) int32 window
+    starts (flat sample index; < 0 = empty row) -> (n, pad_rows*128) f32
+    power windows, window sample j at column j, zeros past out_rows*128,
+    the reference's shape. `extra` widens the window by 2*extra samples
+    (the prescreen path's stage-B windows). The demod paths ask for the
+    first out_rows*128 columns only (`_slice_windows`)."""
+    return _slice_windows(ri, rq, base, cfg, extra,
+                          _slice_cols(cfg, extra, main=False))
 
 
 # --- decode tail and the batch entry points ----------------------------------
@@ -741,13 +763,15 @@ def _demod_batch_planar_prescreen(xi8, xq8, cfg: DspConfig, tile: int,
     half = cfg.nms_chips * cfg.sps
     nw = cfg.noise_window
     cands = preamble_detect_cands_planar(xi8, xq8, cfg, tile=tile, nbuf=nbuf,
-                                         per_lane=per_lane, prescreen=True)
+                                         per_lane=per_lane, ordered=False,
+                                         prescreen=True)
     det2, valid2, _, ovf2 = compact_candidates_unordered(cands, cfg2, tile,
                                                          per_lane=per_lane)
     batch, p = xi8.shape
     base = _window_bases(valid2, det2, p, cfg.left_halo - nw - half)
-    w2 = slice_windows_planar(xi8.reshape(-1, 128), xq8.reshape(-1, 128),
-                              base, cfg, extra=half).reshape(batch, K2, -1)
+    w2 = _slice_windows(xi8.reshape(-1, 128), xq8.reshape(-1, 128), base,
+                        cfg, half, _slice_cols(cfg, half))
+    w2 = w2.reshape(batch, K2, -1)
     win = _stageb_full_check(w2, cfg) & valid2
     # the earliest K winners: the reference's top_k and onehot matmuls are
     # a TPU gather workaround; a sort and an index gather select the same
@@ -805,8 +829,8 @@ def demod_batch_planar(xi8: torch.Tensor, xq8: torch.Tensor, cfg: DspConfig,
     batch, p = xi8.shape
     base = _window_bases(valid, det_idx, p,
                          cfg.left_halo - cfg.noise_window)
-    w2 = slice_windows_planar(xi8.reshape(-1, 128), xq8.reshape(-1, 128),
-                              base, cfg)
+    w2 = _slice_windows(xi8.reshape(-1, 128), xq8.reshape(-1, 128), base,
+                        cfg, 0, _slice_cols(cfg))
     w2 = w2.reshape(batch, cfg.max_detections, -1)
     return _tail_from_power(w2, det_idx, valid, n_det, ovf, cfg)
 

@@ -12,16 +12,19 @@ process per source, all at once), then:
      mixed traffic (~100 msg/s, 15 dB), dense traffic (more hits than K per
      block) and silence, and on mixed traffic at 4 Msps: exactly equal;
   3. holds kernel B2 (per-detection power windows) against its plain version
-     on the window starts of phase 2, with empty rows and a window at the
-     last owned sample: exactly equal;
+     on the window starts of phase 2 (sps 1 and 2), with empty rows, a
+     window at the last owned sample and one at each residue mod 16, at the
+     demod paths' width and the reference's, with and without the prescreen
+     widening: exactly equal; then times a one-element add, the launch
+     floor;
   4. holds kernel B3/B4 (detect mask and reference level on f32 I/Q)
      against its plain version, mask and ref bit for bit: on the mixed,
      dense and silence batches at C = 8 (B4) and on their first blocks at
      C = 1 (B3), on int8 and int16 input, and at 4 Msps;
-  5. launches B1, B2 and B3/B4 100 times on each input of phases 2-4 into
-     buffers flanked by guard zones, with the allocator churned between
-     runs: equal to a fresh plain result every run, no write outside a
-     buffer, no element of one left unwritten;
+  5. launches B1, B2 (both widths) and B3/B4 100 times on each input of
+     phases 2-4 into buffers flanked by guard zones, with the allocator
+     churned between runs: equal to a fresh plain result every run, no
+     write outside a buffer, no element of one left unwritten;
   6. drives the int8 path, `run_native_pipelined` on a uc8 capture of 32
      blocks of 2^20 samples: at least 99% of each DF's injected frames must
      decode, B1 and B2 must have launched, the first batch's packed table
@@ -250,7 +253,8 @@ def b6_ops_per_sample(sps: int, half: int) -> int:
     return b34_ops_per_sample(sps, half) + (1 if sps > 1 else 0)
 
 
-VARIANTS = {"B1": {}, "B5o": {"ordered": True}, "B5p": {"prescreen": True},
+VARIANTS = {"B1": {"ordered": False}, "B5o": {"ordered": True},
+            "B5p": {"ordered": False, "prescreen": True},
             "B5o per_lane 12": {"ordered": True, "per_lane": 12}}
 
 
@@ -308,47 +312,79 @@ def phase_b1(cfg, inputs, dev, flush, variant="B1"):
     return out, worst, timing
 
 
+def b2_bases(cfg, ti, det, valid):
+    """B2's window starts on a (C, P) batch and B1's detections on it: the
+    detections' windows (-1 for an empty table row), then a window at the
+    last owned sample, an empty row, a window at sample 0, and one window
+    at each residue mod 16 (int32, on the batch's device)."""
+    import torch
+    C, p = ti.shape
+    chan0 = torch.arange(C, dtype=torch.int32, device=ti.device)[:, None]
+    base = torch.where(valid, chan0 * p + cfg.left_halo + det
+                       - cfg.noise_window, -1).reshape(-1)
+    last = (C - 1) * p + cfg.left_halo + cfg.block_size - 1 \
+        - cfg.noise_window
+    more = [last, -1, 0] + [p + 2048 + 17 * r for r in range(16)]
+    return torch.cat([base, torch.tensor(more, dtype=torch.int32,
+                                         device=ti.device)]).to(torch.int32)
+
+
+def b2_widths(cfg):
+    """(name, extra, columns) of every B2 form the phases check: the demod
+    paths' width (out_rows*128) and the reference's (pad_rows*128), each
+    plain and widened by the prescreen path's NMS half-window."""
+    from airmodes_torch.kernels import preamble as K
+    half = cfg.nms_chips * cfg.sps
+    return [(f"{w} width, extra {e}", e, K._slice_cols(cfg, e, w == "main"))
+            for e in (0, half) for w in ("main", "reference")]
+
+
 def phase_b2(cfg, b1_out, flush):
-    """B2 kernel vs plain on the window starts of B1's detections, plus
-    empty rows and a window at the last owned sample."""
+    """B2 kernel vs plain, bit for bit, on the window starts of B1's
+    detections plus a window at the last owned sample, empty rows and a
+    window at each residue mod 16, at both widths, with and without the
+    prescreen path's widening. Returns (max abs error, timing of the first
+    input's detections and the first 3 extra windows at extra 0: {width:
+    (ms, plain ms, samples read, columns written)} and the yardstick's ms)."""
     import torch
     from airmodes_torch.kernels import preamble as K
     worst, timing = 0.0, None
     for name, (ti, tq, det, valid, _) in b1_out.items():
-        C, p = ti.shape
-        chan0 = torch.arange(C, dtype=torch.int32, device=ti.device)[:, None]
-        base = torch.where(valid, chan0 * p + cfg.left_halo + det
-                           - cfg.noise_window, -1).reshape(-1)
-        last = (C - 1) * p + cfg.left_halo + cfg.block_size - 1 \
-            - cfg.noise_window
-        base = torch.cat([base, torch.tensor([last, -1, 0], dtype=torch.int32,
-                                             device=ti.device)])
-        base = base.to(torch.int32)
+        base = b2_bases(cfg, ti, det, valid)
         ri, rq = ti.reshape(-1, 128), tq.reshape(-1, 128)
-        got = K.slice_windows_planar(ri, rq, base, cfg)
-        want = K.slice_windows_plain(ri, rq, base, cfg)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
         n_valid = int((base >= 0).sum())
-        print(f"B2 {name}: {base.numel()} windows ({n_valid} non-empty), "
-              f"max |kernel - plain| {err}", flush=True)
-        if not torch.equal(got, want):
-            raise AssertionError(f"B2 kernel != plain on {name}")
-        worst = max(worst, err)
+        for what, extra, cols in b2_widths(cfg):
+            got = K._slice_windows(ri, rq, base, cfg, extra, cols)
+            want = K.slice_windows_plain(ri, rq, base, cfg, extra, cols)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            print(f"B2 sps={cfg.sps} {name}, {what} ({cols} columns): "
+                  f"{base.numel()} windows ({n_valid} non-empty, 16 "
+                  f"residues mod 16), max |kernel - plain| {err}",
+                  flush=True)
+            if not torch.equal(got, want):
+                raise AssertionError(f"B2 kernel != plain on {name}, {what}")
+            worst = max(worst, err)
         if timing is None:
-            _, out_rows, pad_rows, _ = K._slice_geometry(cfg)
-            j = torch.arange(out_rows * 128, device=ti.device)
-            idx = (base.clamp(min=0).to(torch.int64)[:, None] + j).clamp(
+            bt = base[: det.numel() + 3]
+            n_in = int((bt >= 0).sum()) * K._slice_cols(cfg)
+            timing = {}
+            for width in ("main", "reference"):
+                cols = K._slice_cols(cfg, 0, width == "main")
+                timing[width] = (
+                    time_ms(lambda: K._slice_windows(ri, rq, bt, cfg, 0,
+                                                     cols), flush=flush),
+                    time_ms(lambda: K.slice_windows_plain(ri, rq, bt, cfg,
+                                                          0, cols),
+                            flush=flush),
+                    n_in, bt.numel() * cols)
+            # yardstick: one advanced-indexing gather of the windows' int8
+            # pairs (no power, no zero columns)
+            j = torch.arange(K._slice_cols(cfg), device=ti.device)
+            idx = (bt.clamp(min=0).to(torch.int64)[:, None] + j).clamp(
                 max=ri.numel() - 1)
             both = torch.stack([ri.reshape(-1), rq.reshape(-1)])
-            timing = (
-                time_ms(lambda: K.slice_windows_planar(ri, rq, base, cfg),
-                        flush=flush),
-                time_ms(lambda: K.slice_windows_plain(ri, rq, base, cfg),
-                        flush=flush),
-                time_ms(lambda: both[:, idx], flush=flush),
-                n_valid * out_rows * 128, base.numel() * pad_rows * 128,
-            )
+            timing["library"] = time_ms(lambda: both[:, idx], flush=flush)
     return worst, timing
 
 
@@ -376,7 +412,8 @@ def _check_guarded(buf, inner, what):
 def phase_repeat(cfg, b1_out, dev, iters, variant="B1"):
     """B1 (or its variant, VARIANTS) launched `iters` times on each input
     of phase 2, into guarded buffers, each time against a fresh plain
-    result, and with B1 also B2 on its windows; between runs the caching
+    result, and with B1 also B2 on the windows of phase 3 at both widths
+    (the prescreen widening on odd runs); between runs the caching
     allocator is churned with blocks of CANARY so that each run lands on
     other addresses and stale data would show."""
     import numpy as np
@@ -384,17 +421,13 @@ def phase_repeat(cfg, b1_out, dev, iters, variant="B1"):
     from airmodes_torch.kernels import preamble as K
     tile = K.default_tile(cfg)
     kw = VARIANTS[variant]
-    _, out_rows, pad_rows, _ = K._slice_geometry(cfg)
     rng = np.random.default_rng(7)
     t0 = time.perf_counter()
     for name, (ti, tq, det, valid, _) in b1_out.items():
         C, p = ti.shape
-        chan0 = torch.arange(C, dtype=torch.int32, device=dev)[:, None]
-        base = torch.where(valid, chan0 * p + cfg.left_halo + det
-                           - cfg.noise_window, -1).reshape(-1).to(torch.int32)
+        base = b2_bases(cfg, ti, det, valid)
         ri, rq = ti.reshape(-1, 128), tq.reshape(-1, 128)
         s_shape, o_shape = K.detect_cands_buffers(C, cfg, tile)
-        w_shape = (base.numel(), pad_rows * 128)
         for it in range(iters):
             churn = torch.full((int(rng.integers(1, 1 << 22)),), CANARY,
                                dtype=torch.int32, device=dev)
@@ -405,22 +438,30 @@ def phase_repeat(cfg, b1_out, dev, iters, variant="B1"):
             want = K.detect_cands_plain(ti, tq, cfg, tile, **kw)
             checks = [(sbuf, scratch, f"{variant} scratch"),
                       (obuf, out, f"{variant} output")]
+            windows = []
             if variant == "B1":
-                wbuf, w = _guarded(int(np.prod(w_shape)), dev)
-                K.launch_slice_windows(ri, rq, base, cfg,
-                                       w.view(torch.float32).view(w_shape))
-                want_w = K.slice_windows_plain(ri, rq, base, cfg)
-                checks.append((wbuf, w, "B2 output"))
+                for what, extra, cols in b2_widths(cfg)[2 * (it % 2):][:2]:
+                    w_shape = (base.numel(), cols)
+                    wbuf, w = _guarded(int(np.prod(w_shape)), dev)
+                    K.launch_slice_windows(
+                        ri, rq, base, cfg,
+                        w.view(torch.float32).view(w_shape), extra=extra)
+                    windows.append((w.view(torch.float32).view(w_shape),
+                                    K.slice_windows_plain(ri, rq, base, cfg,
+                                                          extra, cols),
+                                    what))
+                    checks.append((wbuf, w, f"B2 output, {what}"))
             del churn
             for b, inner, what in checks:
                 _check_guarded(b, inner, f"{what} on {name}, run {it}")
             if not torch.equal(out.view(o_shape), want):
                 raise AssertionError(f"{variant} kernel != plain on {name}, "
                                      f"run {it}")
-            if variant == "B1" and not torch.equal(
-                    w.view(torch.float32).view(w_shape), want_w):
-                raise AssertionError(f"B2 kernel != plain on {name}, run {it}")
-    what = "B1 and B2" if variant == "B1" else variant
+            for got_w, want_w, what in windows:
+                if not torch.equal(got_w, want_w):
+                    raise AssertionError(f"B2 kernel != plain on {name}, "
+                                         f"{what}, run {it}")
+    what = "B1 and B2 (both widths)" if variant == "B1" else variant
     print(f"repeat: {what} x{iters} on each of {list(b1_out)} "
           f"(sps={cfg.sps}): equal to plain every run, guards intact, every "
           f"output element written ({time.perf_counter() - t0:.2f} s)",
@@ -1061,6 +1102,14 @@ def main() -> int:
 
     b2_err, b2_t = phase_b2(cfg, {k: b1_out[k] for k in ("mixed", "dense")},
                             flush)
+    b2_err = max(b2_err, phase_b2(cfg2, b1_out2, flush)[0])
+    # the launch floor: what a kernel with next to no work takes in this
+    # harness, beside the microsecond-scale kernels (B2, B3, B6 at C = 1)
+    one = torch.zeros(1, device=dev)
+    floor_ms = time_ms(lambda: one.add_(1.0), flush=flush)
+    print(f"launch floor: a one-element in-place add {floor_ms:.5f} ms "
+          f"(L2 left warm: {time_ms(lambda: one.add_(1.0)):.5f} ms) "
+          f"[{smi}]", flush=True)
     b34_in = {"mixed": mf, "dense": df, "silence": np.zeros_like(mf),
               "mixed[0]": mf[:1], "dense[0]": df[:1],
               "silence[0]": np.zeros_like(mf[:1]),
@@ -1144,8 +1193,6 @@ def main() -> int:
           f"{b1_samples * b1_ops_per_sample(cfg.sps, half) / PEAK_F32_INSTR_S * 1e3:.5f}"
           f" ms ({b1_ops_per_sample(cfg.sps, half)} f32 instructions per "
           f"sample over {PEAK_F32_INSTR_S / 1e12:.1f} T/s)", flush=True)
-    b2_ms, b2_plain, b2_lib, b2_in, b2_out = b2_t
-    b2_bound, b2_by = bound(2 * b2_in + 4 * b2_out, 5 * b2_in)
     kernels = [
         {"name": "detect_cands (B1)", "route": "cuda",
          "source": "airmodes_torch/kernels/csrc/detect_cands.cu",
@@ -1153,13 +1200,19 @@ def main() -> int:
          "launches": launches["B1"], "max_abs_err": b1_err,
          "ms": b1_ms, "plain_ms": b1_plain, "bound_ms": b1_bound,
          "bound_by": b1_by, "library_ms": None},
-        {"name": "slice_windows (B2)", "route": "cuda",
-         "source": "airmodes_torch/kernels/csrc/slice_windows.cu",
-         "replaces": "airmodes/kernels/preamble_pallas.py:1386",
-         "launches": launches["slice_windows"], "max_abs_err": b2_err,
-         "ms": b2_ms, "plain_ms": b2_plain, "bound_ms": b2_bound,
-         "bound_by": b2_by, "library_ms": b2_lib},
     ]
+    # B2 at the demod paths' width and at the reference's; both entries
+    # count the kernel's launches on the int8 path, which runs the first
+    for width in ("main", "reference"):
+        ms, plain_ms, n_in, n_out = b2_t[width]
+        bms, by = bound(2 * n_in + 4 * n_out, 5 * n_in)
+        kernels.append(
+            {"name": f"slice_windows (B2, {width} width)", "route": "cuda",
+             "source": "airmodes_torch/kernels/csrc/slice_windows.cu",
+             "replaces": "airmodes/kernels/preamble_pallas.py:1386",
+             "launches": launches["slice_windows"], "max_abs_err": b2_err,
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+             "bound_by": by, "library_ms": b2_t["library"]})
     for C, kid, line in ((1, "B3", 303), (BATCH, "B4", 517)):
         ms, plain_ms, n_bytes, samples = b34_t[C]
         bms, by = bound(n_bytes, samples * b34_ops_per_sample(cfg.sps, half))
@@ -1200,7 +1253,8 @@ def main() -> int:
           f"[{smi}]", flush=True)
     for k in kernels:
         print(f"bound share: {k['name']}: {k['bound_ms'] / k['ms']:.3f} of "
-              f"its bound ({k['bound_by']}) [{smi}]", flush=True)
+              f"its bound ({k['bound_by']}), {k['ms'] / floor_ms:.2f}x the "
+              f"launch floor [{smi}]", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,11 @@ parent commit unpacked with `git archive` into the git-ignored
 seeds, then runs one process per tree in the order old, new, new, old, so
 that each imports its own `airmodes_torch` and builds its own kernels. Each
 process times, on the same inputs, the kernels B1, B5o (ordered) and B5p
-(prescreen) on 8 planar int8 channels at DspConfig(); B3 on one f32 block
-and B4 and B6 on 8; and B6 on 8 blocks at 20 Msps (sps 10). A time is what
+(prescreen) on 8 planar int8 channels at DspConfig(); B2 on the windows of
+B1's detections there, at the demod paths' width and at the reference's
+(a tree whose B2 has one width times it for both); B3 on one f32 block
+and B4 and B6 on 8; B6 on 8 blocks at 20 Msps (sps 10); and a one-element
+in-place add, the launch floor of the harness. A time is what
 chip_smoke.py takes: the median of 20 CUDA-event timings after 3 untimed
 runs, the L2 cache evicted before each. It prints each run's times, then
 per kernel the median of each tree's runs, with the card's name and power
@@ -30,7 +33,8 @@ import sys
 import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ["B1", "B5o", "B5p", "B3", "B4", "B6", "B6 sps 10"]
+KERNELS = ["B1", "B5o", "B5p", "B2 main width", "B2 reference width", "B3",
+           "B4", "B6", "B6 sps 10", "launch floor"]
 
 
 def _smoke():
@@ -72,16 +76,35 @@ def time_tree(inputs: str) -> dict:
     x10 = torch.from_numpy(d["x10"]).to(dev)
     tile = K.supported_2d_tile(cfg)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    # B2's windows as chip_smoke times them: B1's detections and 3 more
+    det, valid, _, _ = K.compact_candidates_unordered(
+        K.preamble_detect_cands_planar(ti, tq, cfg, ordered=False), cfg,
+        K.default_tile(cfg))
+    base = S.b2_bases(cfg, ti, det, valid)[: det.numel() + 3]
+    ri, rq = ti.reshape(-1, 128), tq.reshape(-1, 128)
+    if hasattr(K, "_slice_windows"):
+        def b2(main):
+            return K._slice_windows(ri, rq, base, cfg, 0,
+                                    K._slice_cols(cfg, 0, main))
+    else:
+        def b2(main):
+            return K.slice_windows_planar(ri, rq, base, cfg)
+    one = torch.zeros(1, device=dev)
     calls = {
-        "B1": lambda: K.preamble_detect_cands_planar(ti, tq, cfg),
+        "B1": lambda: K.preamble_detect_cands_planar(ti, tq, cfg,
+                                                     ordered=False),
         "B5o": lambda: K.preamble_detect_cands_planar(ti, tq, cfg,
                                                       ordered=True),
         "B5p": lambda: K.preamble_detect_cands_planar(ti, tq, cfg,
+                                                      ordered=False,
                                                       prescreen=True),
+        "B2 main width": lambda: b2(True),
+        "B2 reference width": lambda: b2(False),
         "B3": lambda: K.preamble_detect_2d(xf[0], cfg, tile),
         "B4": lambda: K.preamble_detect_2d_batch(xf, cfg, tile),
         "B6": lambda: K.preamble_detect_1d_batch(xf, cfg, 16384),
         "B6 sps 10": lambda: K.preamble_detect_1d_batch(x10, cfg10, 16384),
+        "launch floor": lambda: one.add_(1.0),
     }
     return {k: S.time_ms(fn, flush=flush) for k, fn in calls.items()}
 

@@ -171,7 +171,7 @@ def test_detect_cands_plain_matches_jax(captures, nbuf, rate, mxu):
     want = np.asarray(JK.preamble_detect_cands_planar(
         xi, xq, jc, tile=TILE, interpret=True, ordered=False, nbuf=nbuf))
     got = TK.preamble_detect_cands_planar(_t(xi), _t(xq), tc, tile=TILE,
-                                          nbuf=nbuf).numpy()
+                                          nbuf=nbuf, ordered=False).numpy()
     np.testing.assert_array_equal(got, want)
     assert want[:, :, 4].sum() > 0
 
@@ -184,8 +184,8 @@ def test_detect_cands_dense_traffic_matches_jax():
     (xi, xq), _ = _planar(jc, seed=7, n_frames=40, snr=9.0, spacing=700)
     want = np.asarray(JK.preamble_detect_cands_planar(
         xi, xq, jc, tile=TILE, interpret=True, ordered=False))
-    got = TK.preamble_detect_cands_planar(_t(xi), _t(xq), tc,
-                                          tile=TILE).numpy()
+    got = TK.preamble_detect_cands_planar(_t(xi), _t(xq), tc, tile=TILE,
+                                          ordered=False).numpy()
     np.testing.assert_array_equal(got, want)
     assert want[0, :, 4].sum() > jc.max_detections
 
@@ -254,11 +254,10 @@ def test_unordered_candidate_padding_is_sentinel():
 
 # --- kernel B2 ---------------------------------------------------------------
 
-@pytest.mark.parametrize("rate", [2e6, 4e6])
-def test_slice_windows_plain_matches_jax(rate):
-    """B2's plain version == slice_windows_planar, exactly, including
-    empty (-1) rows, windows at channel starts and at the last owned
-    sample of the last channel."""
+def _b2_inputs(rate):
+    """Random planar streams of 3 channels and window starts: empty (-1)
+    rows, windows at channel starts and at the last owned sample of the
+    last channel, random ones, and one at each residue mod 16."""
     jc, tc = _cfgs(channel_rate=rate, block_size=1 << 13, max_detections=8)
     p = JK.planar_length(jc, TILE)
     rng = np.random.default_rng(3)
@@ -266,12 +265,39 @@ def test_slice_windows_plain_matches_jax(rate):
     xq = rng.integers(-128, 128, (3, p)).astype(np.int8)
     last = 2 * p + jc.left_halo + jc.block_size - 1 - jc.noise_window
     base = np.array([0, -1, 5, p, p + 1000, -1, 2 * p + 128, last,
-                     *rng.integers(0, 3 * p - 8192, 8)], np.int32)
-    want = np.asarray(JK.slice_windows_planar(
-        xi.reshape(-1, 128), xq.reshape(-1, 128), base, jc, interpret=True))
-    got = TK.slice_windows_planar(_t(xi.reshape(-1, 128)),
-                                  _t(xq.reshape(-1, 128)), _t(base), tc)
+                     *rng.integers(0, 3 * p - 8192, 8),
+                     *(p + 2048 + 17 * np.arange(16))], np.int32)
+    return jc, tc, xi.reshape(-1, 128), xq.reshape(-1, 128), base
+
+
+@pytest.mark.parametrize("rate", [2e6, 4e6, 10e6])
+def test_slice_windows_plain_matches_jax(rate):
+    """B2's plain version == slice_windows_planar, exactly, including
+    empty (-1) rows, windows at channel starts, at the last owned sample of
+    the last channel and at every residue mod 16, at sps 1, 2 and 5."""
+    jc, tc, ri, rq, base = _b2_inputs(rate)
+    assert sorted(set(base[base >= 0] % 16)) == list(range(16))
+    want = np.asarray(JK.slice_windows_planar(ri, rq, base, jc,
+                                              interpret=True))
+    got = TK.slice_windows_planar(_t(ri), _t(rq), _t(base), tc)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("extra", [0, "half"])
+@pytest.mark.parametrize("rate", [2e6, 4e6, 10e6])
+def test_slice_windows_main_width_is_prefix(rate, extra):
+    """The demod paths' B2 windows (out_rows*128 columns) are the first
+    columns of the reference's (pad_rows*128), which holds only zeros past
+    them, with and without the prescreen path's widening."""
+    jc, tc, ri, rq, base = _b2_inputs(rate)
+    extra = jc.nms_chips * jc.sps if extra == "half" else 0
+    want = np.asarray(JK.slice_windows_planar(ri, rq, base, jc,
+                                              interpret=True, extra=extra))
+    cols = TK._slice_cols(tc, extra)
+    assert cols == JK._slice_geometry(jc, extra)[1] * 128 < want.shape[1]
+    got = TK._slice_windows(_t(ri), _t(rq), _t(base), tc, extra, cols)
+    np.testing.assert_array_equal(got.numpy(), want[:, :cols])
+    assert not want[:, cols:].any()
 
 
 # --- the path end to end -----------------------------------------------------
@@ -408,6 +434,23 @@ def cuda():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rate", [2e6, 4e6, 10e6])
+def test_cuda_slice_windows_match_plain(cuda, rate):
+    """B2 on the card equals its plain version bit for bit at both widths
+    (the demod paths' and the reference's), with and without the
+    prescreen path's widening, at every residue mod 16."""
+    _, tc, ri, rq, base = _b2_inputs(rate)
+    ri, rq, base = _t(ri), _t(rq), _t(base)
+    for extra in (0, tc.nms_chips * tc.sps):
+        for main in (True, False):
+            cols = TK._slice_cols(tc, extra, main)
+            got = TK._slice_windows(ri.to(cuda), rq.to(cuda), base.to(cuda),
+                                    tc, extra, cols)
+            want = TK.slice_windows_plain(ri, rq, base, tc, extra, cols)
+            assert torch.equal(got.cpu(), want), (extra, main)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("rate", [2e6, 4e6])
 def test_cuda_kernels_match_plain(cuda, captures, rate):
     """B1 and B2 on the card equal their plain versions and the reference."""
@@ -417,7 +460,8 @@ def test_cuda_kernels_match_plain(cuda, captures, rate):
         xi, xq, jc, tile=TILE, interpret=True, ordered=False))
     ci = _t(xi).to(cuda)
     cq = _t(xq).to(cuda)
-    got = TK.preamble_detect_cands_planar(ci, cq, tc, tile=TILE)
+    got = TK.preamble_detect_cands_planar(ci, cq, tc, tile=TILE,
+                                          ordered=False)
     np.testing.assert_array_equal(got.cpu().numpy(), want)
     packed = TK.demod_batch_packed_planar(ci, cq, tc, tile=TILE,
                                           device=cuda).cpu().numpy()

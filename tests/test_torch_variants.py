@@ -78,6 +78,17 @@ def _cands_pair(jc, tc, xi, xq, tile=TILE, **kw):
     return got, want
 
 
+@pytest.mark.parametrize("prescreen", [False, True])
+def test_cands_planar_default_matches_jax(captures, prescreen):
+    """Called without `ordered`, preamble_detect_cands_planar equals the
+    reference's called the same way, exactly: both default to the ordered
+    layout (the port defaulted to the unordered one before)."""
+    jc, tc = _cfgs(block_size=1 << 14)
+    got, want = _cands_pair(jc, tc, *captures["dense"], prescreen=prescreen)
+    np.testing.assert_array_equal(got, want)
+    assert want[:, :, 4].sum() > 0
+
+
 @pytest.mark.parametrize("case", [2e6, 10e6, "dense"])
 def test_ordered_cands_plain_matches_jax(captures, case):
     """B5o's plain version == preamble_detect_cands_planar(ordered=True),
@@ -139,8 +150,8 @@ def test_prescreen_cands_plain_matches_jax(captures, case):
     xi, xq = captures[case]
     got, want = _cands_pair(jc, tc, xi, xq, ordered=False, prescreen=True)
     np.testing.assert_array_equal(got, want)
-    full = TK.preamble_detect_cands_planar(_t(xi), _t(xq), tc,
-                                           tile=TILE).numpy()
+    full = TK.preamble_detect_cands_planar(_t(xi), _t(xq), tc, tile=TILE,
+                                           ordered=False).numpy()
     assert (want[:, :, 4] >= full[:, :, 4]).all() and want[:, :, 4].sum()
 
 
@@ -300,8 +311,9 @@ def test_candidate_limits_raise(captures):
     with pytest.raises(ValueError, match=r"per_tile must be in \[1, 512\]"):
         TK.preamble_detect_cands_planar(xi, xq, tc, tile=TILE, ordered=True,
                                         per_tile=513)
-    a = TK.preamble_detect_cands_planar(xi, xq, tc, tile=TILE, per_lane=16)
-    b = TK.preamble_detect_cands_planar(xi, xq, tc, tile=TILE)
+    a = TK.preamble_detect_cands_planar(xi, xq, tc, tile=TILE, ordered=False,
+                                        per_lane=16)
+    b = TK.preamble_detect_cands_planar(xi, xq, tc, tile=TILE, ordered=False)
     assert torch.equal(a, b)
 
 
@@ -315,7 +327,8 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kw", [{"ordered": True}, {"prescreen": True},
+@pytest.mark.parametrize("kw", [{"ordered": True},
+                                {"ordered": False, "prescreen": True},
                                 {"ordered": True, "prescreen": True}])
 def test_cuda_variants_match_plain(cuda, captures, kw):
     """B5o and B5p on the card equal their plain versions, and the packed
