@@ -1,22 +1,26 @@
-"""airmodes_torch — the Mode S / ADS-B receiver's demod path in PyTorch and
-CUDA for NVIDIA Hopper.
+"""airmodes_torch — the Mode S / ADS-B receiver in PyTorch and CUDA for
+NVIDIA Hopper: the demod paths on the card, the decode stack and the
+output plugins on the host.
 
 A port of the `airmodes` JAX package, which stays beside it as the
 reference. This package imports torch, numpy and the standard library,
 never JAX and nothing of `airmodes`; it keeps its own copies of the
 constants, the config, the CRC tables, the host-side table decoder, the C++
-framer and the capture encoder. Entry points run on the card
-(`device="cuda"`) unless the caller asks for the CPU, where the kernels'
-plain PyTorch versions stand in.
+framer, the decoders, the output plugins and the capture encoder. Entry
+points run on the card (`device="cuda"`) unless the caller asks for the
+CPU, where the kernels' plain PyTorch versions stand in.
 """
 
-from . import constants
-from .config import DspConfig
+from . import constants, exceptions
+from .config import Config, DspConfig, OutputConfig, SourceConfig
 from .crc import crc24, parity
+from .decode.altitude import decode_alt
+from .decode.cpr import cpr_decoder
+from .decode.parse import AircraftReport, parse
 from .dsp.pipeline import (DetectionTable, demod_batch, demod_batch_packed,
                            demod_block, demod_block_packed,
                            iq_to_device_layout, pack_table, unpack_table)
-from .io.native_stream import run_native_pipelined
+from .io.native_stream import run_native_channels, run_native_pipelined
 from .io.stream import run_channels, run_pipelined
 from .kernels.preamble import (demod_batch_packed_fast,
                                demod_batch_packed_planar, demod_batch_planar,
@@ -26,11 +30,13 @@ from .kernels.preamble import (demod_batch_packed_fast,
 __version__ = "0.1.0"
 
 __all__ = [
-    "DetectionTable", "DspConfig", "constants", "crc24", "demod_batch",
-    "demod_batch_packed", "demod_batch_packed_fast",
-    "demod_batch_packed_planar", "demod_batch_planar", "demod_block",
-    "demod_block_packed", "demod_block_packed_fast", "iq_to_device_layout",
-    "pack_table", "parity", "planar_length", "run_channels",
-    "run_native_pipelined", "run_pipelined", "supported_2d_tile",
-    "to_planar_i8", "unpack_table",
+    "AircraftReport", "Config", "DetectionTable", "DspConfig",
+    "OutputConfig", "SourceConfig", "constants", "cpr_decoder", "crc24",
+    "decode_alt", "demod_batch", "demod_batch_packed",
+    "demod_batch_packed_fast", "demod_batch_packed_planar",
+    "demod_batch_planar", "demod_block", "demod_block_packed",
+    "demod_block_packed_fast", "exceptions", "iq_to_device_layout",
+    "pack_table", "parity", "parse", "planar_length", "run_channels",
+    "run_native_channels", "run_native_pipelined", "run_pipelined",
+    "supported_2d_tile", "to_planar_i8", "unpack_table",
 ]

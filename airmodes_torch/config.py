@@ -1,14 +1,17 @@
-"""Demod configuration: a copy of `airmodes.config.DspConfig`.
+"""Configuration dataclasses: a copy of `airmodes.config`.
 
 The port imports nothing of the JAX package, so it keeps its own frozen
-`DspConfig` with the same fields, defaults and derived properties.
-`DspConfig.from_dict(dataclasses.asdict(reference_cfg))` builds the port's
-config from the reference's, so both packages run the identical settings.
+`DspConfig`, `SourceConfig`, `OutputConfig`, `MeshConfig` and `Config`
+with the same fields, defaults and derived properties. Each has a
+`from_dict`: `Config.from_dict(dataclasses.asdict(reference_cfg))` builds
+the port's config from the reference's, so both packages run the
+identical settings.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 from .constants import CHIP_RATE, MAX_EVENT_CHIPS
 
@@ -74,3 +77,82 @@ class DspConfig:
     def right_halo(self) -> int:
         """Samples of right context (preamble + longest frame + peak lookahead)."""
         return (MAX_EVENT_CHIPS + 2) * self.sps
+
+
+def _from_dict(cls, d: dict):
+    """Build a flat config dataclass from a dict (`dataclasses.asdict` or
+    JSON); a key the class does not know is an error, and lists become
+    the tuples the frozen (hashable) classes hold."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(d) - names
+    if unknown:
+        raise ValueError(f"unknown {cls.__name__} fields: {sorted(unknown)}")
+    return cls(**{k: tuple(v) if isinstance(v, list) else v
+                  for k, v in d.items()})
+
+
+@dataclasses.dataclass(frozen=True)
+class SourceConfig:
+    """Where IQ samples come from (ref: modes_rx -s / radio.py _setup_source)."""
+
+    kind: str = "file"                 # file | udp | synthetic | uhd | osmocom
+    path: Optional[str] = None         # for file sources (complex64 interleaved)
+    udp_host: str = "0.0.0.0"
+    udp_port: int = 10000
+    udp_timeout_s: float = 0.0         # 0 = survive feeder restarts
+    sample_rate: float = 2e6           # raw source rate (resampled to channel_rate)
+    center_freq: float = 1090e6
+    gain: Optional[float] = None
+    antenna: Optional[str] = None
+    freq_corr_ppm: float = 0.0
+    throttle: bool = False             # real-time throttle for file replay
+    pps_sync: bool = False             # mlat-grade time sync (hardware sources)
+
+    from_dict = classmethod(_from_dict)
+
+
+@dataclasses.dataclass(frozen=True)
+class OutputConfig:
+    """Which output plugins are enabled (ref: modes_rx -P/-K/-d/-w/-m/-n/-l)."""
+
+    print_console: bool = True
+    sbs1_port: Optional[int] = None       # 30003 typical
+    kml_file: Optional[str] = None
+    sqlite_db: Optional[str] = None
+    raw_port: Optional[int] = None        # raw hex TCP feed
+    flightgear: Optional[str] = None      # host:port
+    location: Optional[Tuple[float, float, float]] = None  # lat, lon, alt_m
+
+    from_dict = classmethod(_from_dict)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device layout for the sharded pipeline (SURVEY.md §2.7)."""
+
+    channel_axis: int = 1              # data parallel over SDR channels
+    time_axis: int = 1                 # sequence parallel over time blocks
+    axis_names: Tuple[str, str] = ("channel", "time")
+
+    from_dict = classmethod(_from_dict)
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    dsp: DspConfig = dataclasses.field(default_factory=DspConfig)
+    source: SourceConfig = dataclasses.field(default_factory=SourceConfig)
+    output: OutputConfig = dataclasses.field(default_factory=OutputConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+
+    _PARTS = {"dsp": DspConfig, "source": SourceConfig,
+              "output": OutputConfig, "mesh": MeshConfig}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Config":
+        """Build from `dataclasses.asdict` of the reference `Config`: each
+        part through its own `from_dict`; a missing part takes its
+        defaults, an unknown one is an error."""
+        unknown = set(d) - set(cls._PARTS)
+        if unknown:
+            raise ValueError(f"unknown Config fields: {sorted(unknown)}")
+        return cls(**{k: cls._PARTS[k].from_dict(v) for k, v in d.items()})

@@ -95,6 +95,29 @@ def syndrome_rows(nbits: int) -> np.ndarray:
     return rows
 
 
+@functools.lru_cache(maxsize=None)
+def parity_matrix(nbits: int) -> np.ndarray:
+    """(nbits, 24) uint8 bit matrix: syndrome_bits = frame_bits @ M mod 2.
+
+    Column 0 is the syndrome MSB (bit 23).
+    """
+    rows = syndrome_rows(nbits)
+    cols = np.arange(CRC_BITS - 1, -1, -1, dtype=np.uint32)
+    return ((rows[:, None] >> cols[None, :]) & 1).astype(np.uint8)
+
+
+def syndrome_np(bits: np.ndarray, nbits: int | None = None) -> np.ndarray:
+    """Vectorized syndrome of frames given as a (..., nbits) 0/1 array."""
+    bits = np.asarray(bits)
+    if nbits is None:
+        nbits = bits.shape[-1]
+    rows = syndrome_rows(nbits)
+    sel = bits[..., :nbits].astype(bool)
+    # XOR-accumulate rows of set bits.
+    contrib = np.where(sel, rows, 0)
+    return np.bitwise_xor.reduce(contrib, axis=-1)
+
+
 def check_frame(data: int, nbits: int) -> int:
     """Syndrome of a frame; 0 means parity-clean (or PI with no interrogator)."""
     if nbits not in (SHORT_FRAME_BITS, MAX_FRAME_BITS):

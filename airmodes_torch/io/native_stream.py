@@ -1,15 +1,21 @@
 """Native-runtime product pipeline: C++ IQ framing -> planar int8 demod on
 the card.
 
-The counterpart of `airmodes/io/native_stream.py` (`run_native_pipelined`):
+The counterpart of `airmodes/io/native_stream.py` (`run_native_pipelined`
+for one capture, `run_native_channels` for several, one batched device
+call per time step down the channel axis):
 
 - the C++ framer (native/iqstream.cc) reads the capture, converts the SDR
-  wire format, frames overlapped blocks, applies per-block AGC
-  (gain = 120/peak), quantizes to int8 and splits planar I/Q, on a FEEDER
-  thread, into page-locked host buffers when the target is a card;
+  wire format, frames overlapped blocks, quantizes to int8 with per-block
+  AGC (gain = 120/peak) or a fixed gain (`scale`) and splits planar I/Q,
+  on a FEEDER thread (a thread pool across channels), into page-locked
+  host buffers when the target is a card;
 - a DISPATCH thread copies each batch to the device (non-blocking) and
   launches `demod_batch_packed_planar` (kernels B1 and B2 and the torch
-  tail), with a bounded number of batches in flight;
+  tail), with a bounded number of batches in flight. A config outside
+  the planar gate (sps > 9, a noise window other than 128, a block that
+  is not a multiple of 4096) takes the full-block path on the same rows,
+  as the reference does;
 - the caller's thread does one `.cpu()` of the packed (C, K+1, 9) table per
   batch, then `unpack_table` and `table_to_messages`.
 
@@ -31,22 +37,41 @@ import torch
 
 from ..config import DspConfig
 from ..dsp import host as host_mod
-from ..dsp.pipeline import resolve_device, unpack_table
+from ..dsp.pipeline import (_to_device, demod_batch_packed, resolve_device,
+                            unpack_table)
 from ..kernels.preamble import (demod_batch_packed_planar, planar_length,
                                 supported_planar_tile)
 
 
+def native_available() -> bool:
+    try:
+        from ..native import load
+        load()
+        return True
+    except Exception:
+        return False
+
+
 def _planar_step(cfg: DspConfig, device):
     """(step(xi, xq) -> packed (B, K+1, 9) on the device, planar length P).
-    The port has one route: the planar path, on the card or, when the
-    caller asks for it, on the CPU."""
+    Inside the planar gate: the planar path (kernels B1 and B2). Outside
+    it: rows of T = L+N+R samples rounded up to whole 128-sample lines,
+    stacked to (B, T, 2) int8 on the device and run through the
+    full-block path, as the reference's fallback does."""
     dev = resolve_device(device)
-    if supported_planar_tile(cfg) is None:
-        raise ValueError(
-            "cfg is outside the planar path (noise_window 128, sps <= 9, "
-            "block_size a multiple of 4096)")
-    return (lambda xi, xq: demod_batch_packed_planar(xi, xq, cfg, device=dev),
-            planar_length(cfg))
+    if supported_planar_tile(cfg) is not None:
+        return (lambda xi, xq: demod_batch_packed_planar(xi, xq, cfg,
+                                                         device=dev),
+                planar_length(cfg))
+    T = cfg.left_halo + cfg.block_size + cfg.right_halo
+    P = -(-T // 128) * 128
+
+    def step(xi, xq):
+        xb = torch.stack([_to_device(xi, dev)[:, :T],
+                          _to_device(xq, dev)[:, :T]], dim=-1)
+        return demod_batch_packed(xb, cfg, device=dev)
+
+    return step, P
 
 
 class _PlanarSource:
@@ -54,24 +79,40 @@ class _PlanarSource:
     rows (P is the padded row length callers size their buffers to)."""
 
     def __init__(self, cfg: DspConfig, P: int, *, path: str,
-                 fmt: str = "complex64"):
+                 fmt: str = "complex64", start_sample: int = 0,
+                 ring_samples: Optional[int] = None):
         from ..native import IQStream
-        self.stream = IQStream(cfg)
+        self.stream = IQStream(cfg, ring_samples=ring_samples)
         if P < self.stream.total:
             raise ValueError(f"planar row length {P} < stream row "
                              f"{self.stream.total}")
-        self.stream.start_file(path, fmt=fmt)
+        self.stream.start_file(path, fmt=fmt, offset_samples=start_sample)
+
+    @property
+    def dropped(self) -> int:
+        """Cumulative samples lost to ring overrun (real-time sources)."""
+        return self.stream.dropped
 
     def next_row(self, out_i: np.ndarray, out_q: np.ndarray,
+                 scale: Optional[float] = None,
                  stop=None) -> Optional[tuple]:
-        """Fill one planar row pair with per-block AGC; returns
-        (start_sample, full_scale = gain/127) or None at end of stream."""
-        nxt = self.stream.next_block_planar_agc(out_i, out_q, target=120.0,
-                                                stop=stop)
+        """Fill one planar row pair; returns (start_sample, full_scale)
+        or None at end of stream. scale=None selects per-block AGC
+        (gain = 120/peak, full_scale = gain/127); a float fixes the gain
+        (full_scale = scale/127). A set `stop` event ends the wait early
+        (returns None) so teardown never races a live native call."""
+        if scale is None:
+            nxt = self.stream.next_block_planar_agc(out_i, out_q,
+                                                    target=120.0, stop=stop)
+            if nxt is None:
+                return None
+            start, gain = nxt
+            return start, gain / 127.0
+        nxt = self.stream.next_block_planar_i8(out_i, out_q, scale=scale,
+                                               stop=stop)
         if nxt is None:
             return None
-        start, gain = nxt
-        return start, gain / 127.0
+        return nxt, scale / 127.0
 
     def close(self) -> None:
         self.stream.close()
@@ -174,33 +215,50 @@ def run_native_pipelined(
     *,
     path: str,
     fmt: str = "complex64",
+    start_sample: int = 0,
+    epoch: float = 0.0,
     stats: Optional[host_mod.BlockStats] = None,
     batch: int = 8,
     depth: int = 2,
+    max_blocks: Optional[int] = None,
+    scale: Optional[float] = None,
+    ring_samples: Optional[int] = None,
     device="cuda",
 ) -> Iterator[List[str]]:
     """Drive a capture file through the native framer + planar demod.
 
     Generator yielding one wire-message list per owned block, in stream
-    order. Runs on the card unless `device` asks for the CPU; with no card
-    and the default device it raises before opening the source."""
+    order, for at most `max_blocks` blocks from sample `start_sample`.
+    Runs on the card unless `device` asks for the CPU; with no card and
+    the default device it raises before opening the source."""
     step, P = _planar_step(cfg, device)
     pinned = torch.device(device).type == "cuda"
-    src = _PlanarSource(cfg, P, path=path, fmt=fmt)
+    src = _PlanarSource(cfg, P, path=path, fmt=fmt,
+                        start_sample=start_sample,
+                        ring_samples=ring_samples)
 
     def produce(stop):
+        n_done = 0
         while not stop.is_set():
+            if max_blocks is not None and n_done >= max_blocks:
+                return
+            b = batch
+            if max_blocks is not None:
+                b = min(b, max_blocks - n_done)
             ti, tq, xi, xq = _host_rows(batch, P, pinned)
             rows: List[tuple] = []     # (start_sample, full_scale)
-            for j in range(batch):
-                st = src.next_row(xi[j], xq[j], stop=stop)
+            for j in range(b):
+                st = src.next_row(xi[j], xq[j], scale=scale, stop=stop)
                 if st is None:
                     break
                 rows.append(st)
+            if stats is not None:      # overrun gauge (real-time sources)
+                stats.ring_dropped = src.dropped
             if not rows:
                 return
             yield ti, tq, rows
-            if len(rows) < batch:
+            n_done += len(rows)
+            if len(rows) < b:
                 return
 
     def on_exit(dead: bool) -> None:
@@ -214,5 +272,111 @@ def run_native_pipelined(
         for j, (start, fs) in enumerate(rows):
             table = unpack_table(arr[j])
             yield host_mod.table_to_messages(
-                table, start, cfg.channel_rate, stats=stats,
+                table, start, cfg.channel_rate, epoch=epoch, stats=stats,
                 full_scale=fs)
+
+
+def run_native_channels(
+    paths: List[str],
+    cfg: DspConfig,
+    *,
+    fmt: str = "complex64",
+    start_sample: int = 0,
+    epoch: float = 0.0,
+    stats: Optional[host_mod.BlockStats] = None,
+    depth: int = 2,
+    max_blocks: Optional[int] = None,
+    scale: Optional[float] = None,
+    ring_samples: Optional[int] = None,
+    device="cuda",
+) -> Iterator[List[Optional[List[str]]]]:
+    """Native multi-channel loop: C capture files, one batched device call
+    per time step down the channel axis (the native framer per channel,
+    the planar kernels B1 and B2, threaded dispatch). Ended channels ride
+    along as zero rows until all end, yielding None per dead channel (a
+    live channel with no traffic yields []). Runs on the card unless
+    `device` asks for the CPU; with no card and the default device it
+    raises before opening a source."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    step, P = _planar_step(cfg, device)
+    pinned = torch.device(device).type == "cuda"
+    srcs: List[_PlanarSource] = []
+    try:
+        for p in paths:
+            srcs.append(_PlanarSource(cfg, P, path=p, fmt=fmt,
+                                      start_sample=start_sample,
+                                      ring_samples=ring_samples))
+    except BaseException:
+        for s in srcs:
+            s.close()
+        raise
+    C = len(srcs)
+
+    def produce(stop):
+        ended = [False] * C
+        n_steps = 0
+        # per-channel framing (file read + AGC + quantize + planar split)
+        # is a C call that releases the GIL, so a pool runs the channels'
+        # host work in parallel (within one channel rows are ordered by
+        # the stream, so the parallel axis is channels, not rows)
+        pool = ThreadPoolExecutor(max_workers=min(C, 8)) if C > 1 else None
+        try:
+            while not stop.is_set() and not all(ended):
+                if max_blocks is not None and n_steps >= max_blocks:
+                    return
+                ti, tq, xi, xq = _host_rows(C, P, pinned)
+                starts = [0] * C
+                scales = [1.0] * C
+                live = [False] * C
+
+                def fill(c):
+                    if ended[c]:
+                        return
+                    st = srcs[c].next_row(xi[c], xq[c], scale=scale,
+                                          stop=stop)
+                    if st is None:
+                        ended[c] = True
+                        xi[c] = 0
+                        xq[c] = 0
+                    else:
+                        starts[c], scales[c] = st
+                        live[c] = True
+
+                if pool is None:
+                    fill(0)
+                else:
+                    list(pool.map(fill, range(C)))
+                if stats is not None:  # overrun gauge (real-time sources)
+                    stats.ring_dropped = sum(s.dropped for s in srcs)
+                if not any(live):
+                    return
+                yield ti, tq, starts, scales, live
+                n_steps += 1
+        finally:
+            if pool is not None:
+                # wait=True is bounded: stop is set (or the streams
+                # ended), so in-flight next_row calls leave their retry
+                # loops within ~1 ms, and no worker is still inside a C
+                # call when on_exit frees the native streams
+                pool.shutdown(wait=True)
+
+    def on_exit(dead: bool) -> None:
+        if dead:
+            for s in srcs:
+                s.close()
+
+    for packed, starts, scales, live in _pipeline(
+            produce, lambda it: (step(it[0], it[1]),) + it[2:], depth,
+            on_exit):
+        arr = packed.cpu().numpy()
+        out: List[Optional[List[str]]] = []
+        for c in range(C):
+            if not live[c]:
+                out.append(None)
+                continue
+            table = unpack_table(arr[c])
+            out.append(host_mod.table_to_messages(
+                table, starts[c], cfg.channel_rate, epoch=epoch,
+                stats=stats, full_scale=scales[c]))
+        yield out

@@ -1,8 +1,8 @@
 """ctypes binding for the native IQ streaming runtime (iqstream.cc).
 
 A copy of `airmodes.native` (the C++ framer: ring buffer, overlap-save
-framing as f32 blocks, or with per-block AGC, int8 quantization and the
-planar I/Q split) and of its loader, which imports only the standard
+framing as f32 blocks, or int8 quantization with per-block AGC or a fixed
+gain and the planar I/Q split) and of its loader, which imports only the standard
 library and numpy. Builds the shared library on first use with g++ (cached
 next to the source). Python<->C boundary is a C ABI — no pybind11
 dependency."""
@@ -71,16 +71,27 @@ def load() -> ctypes.CDLL:
         lib.iq_stream_create.restype = vp
         lib.iq_stream_create.argtypes = [u64, u64, u64, u64]
         lib.iq_stream_destroy.argtypes = [vp]
+        lib.iq_stream_push_f32.restype = u64
+        lib.iq_stream_push_f32.argtypes = [vp, ctypes.c_void_p, u64]
+        lib.iq_stream_set_eof.argtypes = [vp]
+        lib.iq_stream_dropped.restype = u64
+        lib.iq_stream_dropped.argtypes = [vp]
         lib.iq_stream_start_file.restype = ip
         lib.iq_stream_start_file.argtypes = [vp, cp, ip, ctypes.c_double,
                                              u64]
         lib.iq_stream_next_block.restype = ip
         lib.iq_stream_next_block.argtypes = [vp, ctypes.c_void_p,
                                              ctypes.POINTER(i64)]
+        lib.iq_stream_next_block_planar_i8.restype = ip
+        lib.iq_stream_next_block_planar_i8.argtypes = [
+            vp, ctypes.c_void_p, ctypes.c_void_p, u64,
+            ctypes.POINTER(i64), f32]
         lib.iq_stream_next_block_planar_agc.restype = ip
         lib.iq_stream_next_block_planar_agc.argtypes = [
             vp, ctypes.c_void_p, ctypes.c_void_p, u64,
             ctypes.POINTER(i64), f32, ctypes.POINTER(f32)]
+        lib.iq_stream_available.restype = u64
+        lib.iq_stream_available.argtypes = [vp]
         _lib = lib
         return lib
 
@@ -90,7 +101,9 @@ _FMT = {"complex64": 0, "f32": 0, "sc16": 1, "uc8": 2}
 
 class IQStream:
     """Native streaming source: ring buffer + overlap-save framer, read
-    as f32 (total, 2) blocks or as planar int8 rows with per-block AGC."""
+    as f32 (total, 2) blocks or as planar int8 rows, with per-block AGC or
+    a fixed gain. Filled from a file by the C++ pump thread, or by `push`
+    and `set_eof` from Python."""
 
     def __init__(self, cfg, ring_samples: Optional[int] = None):
         lib = load()
@@ -138,6 +151,26 @@ class IQStream:
             raise RuntimeError("IQStream is closed")
         return h
 
+    # --- producer -----------------------------------------------------------
+
+    def push(self, iq: np.ndarray) -> int:
+        """Push complex64 or float32 (N,2) samples; returns samples taken.
+        Other dtypes are converted (the C side reinterprets raw bytes as
+        f32 pairs — handing it, say, complex128 silently fills the ring
+        with garbage)."""
+        arr = np.ascontiguousarray(iq)
+        if arr.dtype == np.complex64:
+            arr = arr.view(np.float32)
+        elif np.iscomplexobj(arr):
+            arr = np.ascontiguousarray(
+                arr.astype(np.complex64)).view(np.float32)
+        elif arr.dtype != np.float32:
+            arr = np.ascontiguousarray(arr.astype(np.float32))
+        n = arr.size // 2
+        with self._lock:
+            return int(self._lib.iq_stream_push_f32(
+                self._handle(), arr.ctypes.data_as(ctypes.c_void_p), n))
+
     def start_file(self, path: str, fmt: str = "complex64",
                    throttle_sps: float = 0.0,
                    offset_samples: int = 0) -> None:
@@ -149,6 +182,22 @@ class IQStream:
             raise OSError("stream already started")
         if rc != 0:
             raise OSError(f"cannot open {path}")
+
+    def set_eof(self) -> None:
+        with self._lock:
+            if self._h:
+                self._lib.iq_stream_set_eof(self._h)
+
+    @property
+    def dropped(self) -> int:
+        """Cumulative samples lost to ring overrun (real-time sources)."""
+        with self._lock:
+            return int(self._lib.iq_stream_dropped(self._handle()))
+
+    @property
+    def available(self) -> int:
+        with self._lock:
+            return int(self._lib.iq_stream_available(self._handle()))
 
     # --- consumer -----------------------------------------------------------
 
@@ -180,6 +229,33 @@ class IQStream:
             if nxt is None:
                 return
             yield nxt
+
+    def next_block_planar_i8(self, out_i: np.ndarray, out_q: np.ndarray,
+                             scale: float = 127.0, stop=None
+                             ) -> Optional[int]:
+        """Fill planar int8 I and Q rows (each len >= left+block+right,
+        zero-padded past the frame) in one fused native pass, with the
+        fixed gain int8 = round(f32 * scale); returns the start sample, or
+        None at end of stream. Blocks until data is available."""
+        import time as _t
+        self._check_planar_out(out_i, out_q)
+        start = ctypes.c_int64(0)
+        while not (stop is not None and stop.is_set()):
+            with self._lock:
+                if not self._h:
+                    return None
+                rc = self._lib.iq_stream_next_block_planar_i8(
+                    self._h, out_i.ctypes.data_as(ctypes.c_void_p),
+                    out_q.ctypes.data_as(ctypes.c_void_p), out_i.size,
+                    ctypes.byref(start), float(scale))
+            if rc == 1:
+                return int(start.value)
+            if rc == -1:
+                return None
+            if rc == -2:
+                raise ValueError(
+                    f"planar row too short: {out_i.size} < {self.total}")
+            _t.sleep(0.001)
 
     def next_block_planar_agc(self, out_i: np.ndarray, out_q: np.ndarray,
                               target: float = 120.0, stop=None

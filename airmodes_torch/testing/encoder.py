@@ -6,78 +6,26 @@ chosen SNR, with known ground truth. Everything downstream (preamble detect,
 slicer, CRC/ECC, parser, CPR) is validated against captures built here.
 
 All host-side numpy; the device never sees this code. A copy of
-`airmodes.testing.encoder` (same seeds, same frames, same captures) that
-carries its own field encoders, so the port builds ground-truth captures
-without importing the JAX package.
+`airmodes.testing.encoder` (same seeds, same frames, same captures), over
+the port's own `decode/` field encoders, so the port builds ground-truth
+captures without importing the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from .. import crc
 from ..constants import (
-    CALLSIGN_CHARMAP,
-    CHIP_RATE,
     CHIPS_PER_BIT,
     MAX_FRAME_BITS,
     PREAMBLE_CHIPS,
     PREAMBLE_PULSE_CHIPS,
     SHORT_FRAME_BITS,
 )
-
-# --- field encoders (the decoder package's inverses, copied) ----------------
-
-_CPR_NZ = 15
-_CPR_SCALE = float(1 << 17)
-_Q_BIT = 0x0010
-
-
-def _cpr_nl(declat: float) -> int:
-    """Number of CPR longitude zones at a latitude (closed form)."""
-    if abs(declat) >= 87.0:
-        return 2 if abs(declat) == 87.0 else 1
-    if declat == 0.0:
-        return 59
-    a = 1 - math.cos(math.pi / (2 * _CPR_NZ))
-    b = math.cos(math.pi / 180.0 * abs(declat)) ** 2
-    return int(math.floor(2 * math.pi / math.acos(1 - a / b)))
-
-
-def _cpr_mod(a: float, b: float) -> float:
-    return a - b * math.floor(a / b)
-
-
-def cpr_encode(lat: float, lon: float, odd: bool, surface: bool):
-    """Encode lat/lon into 17-bit CPR (YZ, XZ)."""
-    span = 90.0 if surface else 360.0
-    dlat = span / (4 * _CPR_NZ - (1 if odd else 0))
-    yz = math.floor(_CPR_SCALE * _cpr_mod(lat, dlat) / dlat + 0.5)
-    rlat = dlat * (yz / _CPR_SCALE + math.floor(lat / dlat))
-    dlon = span / max(_cpr_nl(rlat) - (1 if odd else 0), 1)
-    xz = math.floor(_CPR_SCALE * _cpr_mod(lon, dlon) / dlon + 0.5)
-    return int(yz) & 0x1FFFF, int(xz) & 0x1FFFF
-
-
-def encode_alt_q(alt_ft: float, bit13: bool = True) -> int:
-    """Encode altitude with the Q bit (25 ft resolution)."""
-    n = int(round((alt_ft + 1000) / 25))
-    if not 0 <= n < (1 << 11):
-        raise ValueError(f"altitude {alt_ft} out of Q-bit range")
-    alt13 = ((n & 0x7E0) << 2) | ((n & 0x010) << 1) | (n & 0x00F) | _Q_BIT
-    if bit13:
-        return alt13
-    return ((alt13 & 0x1F80) >> 1) | (alt13 & 0x3F)
-
-
-def encode_alt_12bit(alt_ft: float) -> int:
-    """12-bit AC field for DF17 BDS0,5 frames."""
-    return encode_alt_q(alt_ft, bit13=False)
-
 
 PREAMBLE_CHIP_PATTERN = np.zeros(PREAMBLE_CHIPS, dtype=np.float32)
 for _c in PREAMBLE_PULSE_CHIPS:
@@ -101,6 +49,15 @@ def build_frame(payload: int, payload_bits: int, overlay: int = 0) -> Tuple[int,
 def df17_frame(icao: int, me: int, ca: int = 5) -> int:
     """DF17 extended squitter: [df:5][ca:3][aa:24][me:56][pi:24]."""
     payload = (17 << 83) | ((ca & 0x7) << 80) | ((icao & 0xFFFFFF) << 56) | (me & (1 << 56) - 1)
+    frame, n = build_frame(payload, 88)
+    assert n == MAX_FRAME_BITS
+    return frame
+
+def df18_frame(icao: int, me: int, cf: int = 0) -> int:
+    """DF18 extended squitter / non-transponder:
+    [df:5][cf:3][aa:24][me:56][pi:24]."""
+    payload = (18 << 83) | ((cf & 0x7) << 80) | ((icao & 0xFFFFFF) << 56) \
+        | (me & (1 << 56) - 1)
     frame, n = build_frame(payload, 88)
     assert n == MAX_FRAME_BITS
     return frame
@@ -162,10 +119,27 @@ def df24_frame(icao: int, nd: int, md: int, ke: int = 0) -> int:
     assert n == MAX_FRAME_BITS
     return frame
 
+def df24_segments(icao: int, data: bytes, ke: int = 0) -> list:
+    """Split a Comm-D ELM payload into DF24 segment frames (10 bytes per
+    80-bit MD, zero-padded; <= 16 segments — decode/elm.py reassembles)."""
+    from ..decode.elm import MAX_SEGMENTS, SEGMENT_BYTES
+    n = -(-len(data) // SEGMENT_BYTES)
+    if not 1 <= n <= MAX_SEGMENTS:
+        raise ValueError(f"ELM payload needs 1..{MAX_SEGMENTS} segments, "
+                         f"got {n}")
+    padded = data.ljust(n * SEGMENT_BYTES, b"\0")
+    return [df24_frame(icao,
+                       i, int.from_bytes(
+                           padded[i * SEGMENT_BYTES:(i + 1) * SEGMENT_BYTES],
+                           "big"), ke=ke)
+            for i in range(n)]
+
+
 # --- ME-field helpers (DF17 payload types, ref: python/parse.py layouts) -----
 
 def me_identification(callsign: str, tc: int = 4, cat: int = 0) -> int:
     """BDS0,8 ident ME: [ftc:5][cat:3][8 x 6-bit chars]."""
+    from ..constants import CALLSIGN_CHARMAP
     cs = (callsign + " " * 8)[:8].upper().replace(" ", "_")
     me = (tc & 0x1F) << 51 | (cat & 7) << 48
     for i, ch in enumerate(cs):
@@ -177,9 +151,27 @@ def me_identification(callsign: str, tc: int = 4, cat: int = 0) -> int:
 def me_airborne_position(alt_ft: Optional[float], lat: float, lon: float,
                          odd: bool, tc: int = 11, ss: int = 0) -> int:
     """BDS0,5 airborne position ME: [ftc:5][ss:2][nicsb:1][alt:12][t:1][f:1][lat:17][lon:17]."""
+    from ..decode.cpr import cpr_encode
+    from ..decode.altitude import encode_alt_12bit
     yz, xz = cpr_encode(lat, lon, odd=odd, surface=False)
     alt12 = 0 if alt_ft is None else encode_alt_12bit(alt_ft)
     me = (tc & 0x1F) << 51 | (ss & 3) << 49 | (alt12 & 0xFFF) << 36
+    me |= (1 if odd else 0) << 34 | (yz & 0x1FFFF) << 17 | (xz & 0x1FFFF)
+    return me
+
+
+def me_surface_position(lat: float, lon: float, odd: bool, tc: int = 7,
+                        mov: int = 0, track_deg: Optional[float] = None) -> int:
+    """BDS0,6 surface position ME: [ftc:5][mov:7][gts:1][gtk:7][t:1][f:1][lat:17][lon:17].
+
+    `mov` is the DO-260 movement code (see parse._surface_speed bands);
+    track is valid (gts=1) only when track_deg is given.
+    """
+    from ..decode.cpr import cpr_encode
+    yz, xz = cpr_encode(lat, lon, odd=odd, surface=True)
+    gts = 0 if track_deg is None else 1
+    gtk = 0 if track_deg is None else round(track_deg % 360.0 * 128.0 / 360.0) & 0x7F
+    me = (tc & 0x1F) << 51 | (mov & 0x7F) << 44 | gts << 43 | gtk << 36
     me |= (1 if odd else 0) << 34 | (yz & 0x1FFFF) << 17 | (xz & 0x1FFFF)
     return me
 
@@ -202,6 +194,69 @@ def me_velocity(gs_kt: float, track_deg: float, vrate_fpm: float,
     me |= s_ew << 42 | v_ew << 32 | s_ns << 31 | v_ns << 21
     me |= 1 << 20  # vertical rate source: baro
     me |= s_vr << 19 | v_vr << 10
+    return me
+
+
+def me_emergency_status(state: int, squawk: int = 0) -> int:
+    """BDS6,1 subtype 1 (TC28) emergency/priority status ME."""
+    from ..decode.fields import encode_squawk
+    me = (28 << 51) | (1 << 48) | (state & 7) << 45
+    if squawk:
+        me |= (encode_squawk(squawk) & 0x1FFF) << 32
+    return me
+
+
+def me_ra_broadcast(ara: int, rac: int = 0, rat: int = 0, mte: int = 0,
+                    tti: int = 0, tid: int = 0) -> int:
+    """BDS6,1 subtype 2 (TC28) ACAS RA broadcast ME (payload = BDS3,0)."""
+    return ((28 << 51) | (2 << 48) | (ara & 0x3FFF) << 34 |
+            (rac & 0xF) << 30 | (rat & 1) << 29 | (mte & 1) << 28 |
+            (tti & 3) << 26 | (tid & 0x3FFFFFF))
+
+
+def me_target_state(sel_alt_ft: Optional[float] = None, fms: bool = False,
+                    baro_mb: Optional[float] = None,
+                    sel_hdg_deg: Optional[float] = None,
+                    nacp: int = 0, sil: int = 0, nic_baro: int = 0,
+                    modes: Optional[dict] = None, tcas_op: bool = True) -> int:
+    """BDS6,2 subtype 1 (TC29) target state and status ME."""
+    me = (29 << 51) | (1 << 49)
+    if fms:
+        me |= 1 << 47
+    if sel_alt_ft is not None:
+        me |= (min(int(round(sel_alt_ft / 32.0)) + 1, 0x7FF)) << 36
+    if baro_mb is not None:
+        me |= (min(int(round((baro_mb - 800.0) / 0.8)) + 1, 0x1FF)) << 27
+    if sel_hdg_deg is not None:
+        hdg9 = int(round((sel_hdg_deg % 360.0) * 256.0 / 180.0)) & 0x1FF
+        me |= (1 << 26) | hdg9 << 17
+    me |= (nacp & 0xF) << 13 | (nic_baro & 1) << 12 | (sil & 3) << 10
+    if modes is not None:
+        me |= 1 << 9
+        for key, pos in (("autopilot", 8), ("vnav", 7), ("altitude_hold", 6),
+                         ("approach", 4), ("lnav", 2)):
+            if modes.get(key):
+                me |= 1 << pos
+    if tcas_op:
+        me |= 1 << 3
+    return me
+
+
+def me_op_status(surface: bool = False, version: int = 2, nacp: int = 9,
+                 sil: int = 3, gva: int = 2, nic_baro: int = 1,
+                 nic_sup_a: int = 0, cc: int = 0, om: int = 0, lw: int = 0,
+                 trk_hdg: int = 0, hrd: int = 0) -> int:
+    """BDS6,5 (TC31) aircraft operational status ME, subtype 0/1."""
+    me = (31 << 51) | ((1 if surface else 0) << 48)
+    if surface:
+        me |= (cc & 0xFFF) << 36 | (lw & 0xF) << 32 | (om & 0xFFFF) << 16
+        me |= (version & 7) << 13 | (nic_sup_a & 1) << 12 | (nacp & 0xF) << 8
+        me |= (sil & 3) << 4 | (trk_hdg & 1) << 3 | (hrd & 1) << 2
+    else:
+        me |= (cc & 0xFFFF) << 32 | (om & 0xFFFF) << 16
+        me |= (version & 7) << 13 | (nic_sup_a & 1) << 12 | (nacp & 0xF) << 8
+        me |= (gva & 3) << 6 | (sil & 3) << 4 | (nic_baro & 1) << 3
+        me |= (hrd & 1) << 2
     return me
 
 
@@ -254,6 +309,7 @@ def make_capture(
     frames: list of (frame_int, nbits). SNR is per-pulse power over noise power.
     Returns (iq, ground_truth). Pulse amplitude A satisfies A^2/noise = 10^(snr/10).
     """
+    from ..constants import CHIP_RATE
     sps = int(round(rate / CHIP_RATE))
     assert sps >= 1
     if abs(sps * CHIP_RATE - rate) > 1e-3:   # same ABSOLUTE tolerance as
@@ -295,20 +351,22 @@ def frame_icao(frame: int, nbits: int) -> int:
     """Transmitter address of an encoded frame: the AA field for
     DF11/17/18, parity-overlay recovery otherwise (a clean AP frame's
     syndrome IS the interrogated address — crc.py module docstring)."""
+    from ..crc import check_frame
     df = frame >> (nbits - 5)
     if df in (11, 17, 18):
         return (frame >> (nbits - 32)) & 0xFFFFFF
-    return crc.check_frame(frame, nbits)
+    return check_frame(frame, nbits)
 
 
 def random_mixed_frames(n: int, seed: int = 0) -> List[Tuple[int, int]]:
-    """Mixed live-traffic frame set ~60% DF17 plus every
+    """Mixed live-traffic frame set: ~60% DF17 plus every
     other supported downlink format — DF11 (PI, clean-syndrome
     acceptance), DF0/4/5 (56-bit length dispatch + AP-overlay address
     recovery), DF16/20/21/24 (112-bit AP-overlay) — so the bench
     exercises the slicer's DF->length dispatch and per-DF CRC acceptance
     on the real chip, like the reference's de-facto mixed-traffic replay
     (SURVEY §4; lib/slicer_impl.cc:~120 DF dispatch)."""
+    from ..decode.altitude import encode_alt_q
     rng = np.random.default_rng(seed + 7)
     df17 = random_df17_frames(n, seed=seed)
 

@@ -50,7 +50,20 @@ process per source, all at once), then:
      `demod_batch_packed_1d`: each at least 99% of each DF, its kernels
      launched, every batch's packed table equal to the CPU's (noise within
      rtol 1e-5, 1e-4 on the 1-D path's full-block noise floor);
- 10. prints one JSON line of per-kernel numbers, the card line, and last
+ 10. runs phase 6's messages through the port's decode and output layers:
+     `parse`, `output_print` (into a list) and `output_sql` (a temporary
+     SQLite file); every injected address must appear in the reports and
+     every DF17 identification's callsign must re-encode to the injected
+     frame;
+ 11. drives `run_native_pipelined` with `DspConfig(channel_rate=20e6)`,
+     which the planar kernels refuse, over an 8-block uc8 capture: the
+     full-block path on the card (no hand kernel launches), at least 99%
+     of each DF, every message equal to the CPU's;
+ 12. drives `run_native_channels` over four uc8 captures of 8, 8, 6 and 3
+     blocks at `DspConfig()`: B1 and B2 must launch, each channel must
+     decode at least 99% of each DF, an ended channel must yield None, and
+     every step must equal the CPU's; prints its end-to-end Msps;
+ 13. prints one JSON line of per-kernel numbers, the card line, and last
      {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero. Without a CUDA card, or without the
@@ -715,7 +728,7 @@ def phase_main(cfg, dev, tmp, smi):
           f"= {BATCH * cfg.block_size / step_ms / 1e3:.1f} Msps; end to end "
           f"{samples / wall / 1e6:.1f} Msps over {N_MAIN_BLOCKS} blocks "
           f"({wall:.3f} s) [{smi}]", flush=True)
-    return launches, truth
+    return launches, truth, msgs
 
 
 def _stream_blocks(cfg, path, start=0, stop=None):
@@ -1034,6 +1047,166 @@ def phase_1d(cfg, dev, path, truth, tmp, smi):
     return launches
 
 
+def phase_reports(msgs, truth, tmp):
+    """Phase 6's messages through the decode and output layers: `parse`,
+    `output_print` into a list and `output_sql` into a SQLite file. Every
+    injected address must appear in the reports, and every DF17
+    identification's callsign must re-encode to the injected ME field."""
+    import sqlite3
+    from airmodes_torch.decode.parse import parse
+    from airmodes_torch.exceptions import ADSBError
+    from airmodes_torch.outputs import output_print, output_sql
+    from airmodes_torch.testing import encoder
+    t0 = time.perf_counter()
+    p = parse()
+    reports, bad = [], 0
+    for m in msgs:
+        try:
+            reports.append(p.parse(m))
+        except ADSBError:
+            bad += 1
+    lines = []
+    console = output_print(callback=lines.append)
+    db = os.path.join(tmp, "reports.db")
+    sql = output_sql(db)
+    for m in msgs:
+        console.output(m)
+        sql.output(m)
+    sql.close()
+    con = sqlite3.connect(db)
+    try:
+        rows = {t: con.execute(f"SELECT COUNT(*) FROM {t}").fetchone()[0]
+                for t in ("aircraft", "positions", "vectors", "squawks",
+                          "track")}
+    finally:
+        con.close()
+    wall = time.perf_counter() - t0
+
+    injected = {encoder.frame_icao(t.frame, t.nbits) for t in truth}
+    missing = injected - {r.icao for r in reports}
+    if missing:
+        raise AssertionError(f"reports: {len(missing)} injected addresses "
+                             f"missing, e.g. {sorted(missing)[:5]}")
+    by_frame = {r.raw_hex: r for r in reports}
+    n_ident = 0
+    for t in truth:
+        me = (t.frame >> 24) & ((1 << 56) - 1)
+        if t.df != 17 or not 1 <= me >> 51 <= 4:
+            continue
+        rep = by_frame.get(t.hex)
+        if rep is None or rep.callsign is None or encoder.me_identification(
+                rep.callsign, tc=me >> 51, cat=(me >> 48) & 7) != me:
+            raise AssertionError(f"reports: identification {t.hex} decoded "
+                                 f"as {rep and rep.callsign!r}")
+        n_ident += 1
+    # output_print writes a line per report and one per ELM that the
+    # parser completed at idle
+    n_flushed = sum(len(r.elm_flushed or ()) for r in reports)
+    want_lines = sum(bool(output_print.format_report(r))
+                     for r in reports) + n_flushed
+    if not n_ident or len(lines) != want_lines or not rows["aircraft"]:
+        raise AssertionError(f"reports: {n_ident} identifications, "
+                             f"{len(lines)} console lines (want "
+                             f"{want_lines}), {rows}")
+    print(f"reports: {len(msgs)} messages -> {len(reports)} reports "
+          f"({bad} undecodable), all {len(injected)} injected addresses "
+          f"present, {n_ident} callsigns == the "
+          f"encoder's; output_print {len(lines)} lines ({n_flushed} idle "
+          f"ELMs); output_sql rows {rows} ({wall:.2f} s on the host)",
+          flush=True)
+
+
+def phase_c1(dev, tmp, smi):
+    """A config outside the planar gate through the int8 runner: at 20 Msps
+    (sps 10) `run_native_pipelined` takes the full-block path on the
+    stacked int8 rows, on the card, with no hand kernel."""
+    import torch
+    from airmodes_torch.config import DspConfig
+    from airmodes_torch.io.native_stream import run_native_pipelined
+    from airmodes_torch.kernels import preamble as K
+    cfg20 = DspConfig(channel_rate=20e6)
+    if K.supported_planar_tile(cfg20) is not None:
+        raise AssertionError("C1: 20 Msps is inside the planar gate")
+    path = os.path.join(tmp, "c1.uc8")
+    truth = write_capture(cfg20, path, BATCH, seed=5)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    msgs = _messages(run_native_pipelined(cfg20, path=path, fmt="uc8",
+                                          batch=BATCH, device=dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hand = {**K.LAUNCHES, **K.DETECT_CANDS_ROUTES, **K.DETECT_MASK_ROUTES}
+    if any(hand.values()):
+        raise AssertionError(f"C1: the full-block route launched {hand}")
+    t1 = time.perf_counter()
+    on_cpu = _messages(run_native_pipelined(cfg20, path=path, fmt="uc8",
+                                            batch=BATCH, device="cpu"))
+    if msgs != on_cpu:
+        diff = sorted(set(msgs) ^ set(on_cpu))[:5]
+        raise AssertionError(f"C1: card != CPU ({len(msgs)} vs "
+                             f"{len(on_cpu)} messages; e.g. {diff})")
+    print(f"C1: run_native_pipelined at 20 Msps, {BATCH} blocks: "
+          f"{len(msgs)} messages == CPU ({time.perf_counter() - t1:.1f} s "
+          f"on the CPU), no hand kernel launched; end to end "
+          f"{BATCH * cfg20.block_size / wall / 1e6:.1f} Msps ({wall:.3f} s) "
+          f"[{smi}]", flush=True)
+    _decode_check(msgs, truth, "C1")
+
+
+CHANNEL_BLOCKS = (8, 8, 6, 3)
+
+
+def phase_channels(cfg, dev, tmp, smi):
+    """run_native_channels at C = 4 over uc8 captures of unequal length;
+    returns the launch counts of that run."""
+    import torch
+    from airmodes_torch.dsp.host import BlockStats
+    from airmodes_torch.io.native_stream import run_native_channels
+    from airmodes_torch.kernels import preamble as K
+    paths, truths = [], []
+    for c, n in enumerate(CHANNEL_BLOCKS):
+        paths.append(os.path.join(tmp, f"ch{c}.uc8"))
+        truths.append(write_capture(cfg, paths[-1], n, seed=11 + c))
+    stats = BlockStats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    steps = list(run_native_channels(paths, cfg, fmt="uc8", stats=stats,
+                                     device=dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    launches["B1"] = K.DETECT_CANDS_ROUTES["B1"]
+    for k in ("B1", "slice_windows"):
+        if launches[k] <= 0:
+            raise AssertionError(f"channels: kernel {k} never launched")
+    if len(steps) != max(CHANNEL_BLOCKS):
+        raise AssertionError(f"channels: {len(steps)} steps")
+    for k, step in enumerate(steps):
+        ended = [m is None for m in step]
+        if ended != [k >= n for n in CHANNEL_BLOCKS]:
+            raise AssertionError(f"channels: step {k} ended {ended}")
+    t1 = time.perf_counter()
+    on_cpu = list(run_native_channels(paths, cfg, fmt="uc8", device="cpu"))
+    if steps != on_cpu:
+        bad = [k for k, (a, b) in enumerate(zip(steps, on_cpu)) if a != b]
+        raise AssertionError(f"channels: card != CPU at steps {bad} "
+                             f"({len(steps)} vs {len(on_cpu)} steps)")
+    n_msgs = [sum(len(st[c] or []) for st in steps)
+              for c in range(len(paths))]
+    print(f"channels: run_native_channels, C = {len(paths)}, blocks "
+          f"{CHANNEL_BLOCKS}: {n_msgs} messages, every step == CPU "
+          f"({time.perf_counter() - t1:.1f} s on the CPU), ended channels "
+          f"None; launches {launches}; {stats}", flush=True)
+    for c, truth in enumerate(truths):
+        _decode_check([m for st in steps for m in (st[c] or [])], truth,
+                      f"channels ch{c}")
+    samples = sum(CHANNEL_BLOCKS) * cfg.block_size
+    print(f"channels: end to end {samples / wall / 1e6:.1f} Msps "
+          f"({sum(CHANNEL_BLOCKS)} blocks of {cfg.block_size} samples in "
+          f"{len(steps)} steps, {wall:.3f} s) [{smi}]", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1168,13 +1341,17 @@ def main() -> int:
     del b5o12_out, big_out, big6_out
 
     with tempfile.TemporaryDirectory() as tmp:
-        launches, truth = phase_main(cfg, dev, tmp, smi)
+        launches, truth, main_msgs = phase_main(cfg, dev, tmp, smi)
+        phase_reports(main_msgs, truth, tmp)
         b5_launches = phase_planar_options(
             cfg, dev, os.path.join(tmp, "main.uc8"), truth, smi)
     with tempfile.TemporaryDirectory() as tmp:
         routes, truth = phase_main_f32(cfg, dev, tmp, smi)
         b6_launches = phase_1d(cfg, dev, os.path.join(tmp, "main.c64"),
                                truth, tmp, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_c1(dev, tmp, smi)
+        chan_launches = phase_channels(cfg, dev, tmp, smi)
 
     def bound(n_bytes, n_ops):
         mem_s, ops_s = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_INSTR_S
@@ -1255,6 +1432,10 @@ def main() -> int:
         print(f"bound share: {k['name']}: {k['bound_ms'] / k['ms']:.3f} of "
               f"its bound ({k['bound_by']}), {k['ms'] / floor_ms:.2f}x the "
               f"launch floor [{smi}]", flush=True)
+    print(f"channels: B1 launched {chan_launches['B1']} times and B2 "
+          f"{chan_launches['slice_windows']} times on the run_native_channels "
+          f"path (the int8 main path: {launches['B1']} and "
+          f"{launches['slice_windows']})", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

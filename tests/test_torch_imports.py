@@ -35,8 +35,34 @@ def test_every_module_is_found():
                  "airmodes_torch.io.stream",
                  "airmodes_torch.native",
                  "airmodes_torch.testing.encoder",
-                 "airmodes_torch.dsp.pipeline"):
+                 "airmodes_torch.dsp.pipeline",
+                 "airmodes_torch.exceptions",
+                 "airmodes_torch.config",
+                 "airmodes_torch.crc",
+                 "airmodes_torch.decode",
+                 "airmodes_torch.outputs"):
         assert want in names
+
+
+def test_every_decode_and_output_module_is_ported():
+    """Each module of the reference's decode/ and outputs/ has its copy in
+    the port."""
+    names = _modules()
+    for sub in ("decode", "outputs"):
+        ref = os.path.join(ROOT, "airmodes", sub)
+        for f in sorted(os.listdir(ref)):
+            if f.endswith(".py"):
+                mod = "" if f == "__init__.py" else "." + f[:-3]
+                assert f"airmodes_torch.{sub}{mod}" in names, (sub, f)
+
+
+def test_package_exports_match_reference():
+    """The port exports the reference package's decode and config names."""
+    for name in ("parse", "AircraftReport", "cpr_decoder", "decode_alt",
+                 "Config", "SourceConfig", "OutputConfig", "exceptions",
+                 "run_native_channels"):
+        assert name in airmodes_torch.__all__
+        assert getattr(airmodes_torch, name) is not None
 
 
 def test_imports_load_no_jax_and_no_airmodes():

@@ -1,6 +1,10 @@
-"""The port's native runner (C++ framer -> planar demod) against the JAX
-package's, on a small capture file. Skips where there is no C++ toolchain,
-as tests/test_native.py does."""
+"""The port's native runners (C++ framer -> planar demod, or the full-block
+path outside the planar gate) against the JAX package's, on small capture
+files: `run_native_pipelined` with each of its options, and
+`run_native_channels`. Messages are compared exactly, string for string.
+Skips where there is no C++ toolchain, as tests/test_native.py does."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -22,20 +26,39 @@ def native_ok():
         pytest.skip("no C++ toolchain")
 
 
-@pytest.fixture(scope="module")
-def capture(tmp_path_factory, native_ok):
-    """A uc8 capture of mixed traffic over 3+ blocks, and its truth."""
-    frames = encoder.random_mixed_frames(14, seed=31)
-    iq, truth = encoder.make_capture(frames, snr_db=20.0, spacing=3700,
-                                     seed=31, total_samples=3 * (1 << 14)
-                                     + 5000)
-    x = iq / float(np.max(np.abs(iq))) * 0.9
+def _write_uc8(path, iq):
+    """Offset-binary uc8 at 0.9 of full scale, as an RTL-SDR writes it."""
+    peak = float(np.max(np.abs(iq))) or 1.0
+    x = iq / peak * 0.9
     u = np.empty(2 * len(x), np.uint8)
     u[0::2] = np.round(x.real * 127.5 + 127.5).astype(np.uint8)
     u[1::2] = np.round(x.imag * 127.5 + 127.5).astype(np.uint8)
-    path = str(tmp_path_factory.mktemp("cap") / "cap.uc8")
     u.tofile(path)
-    return path, truth
+    return path
+
+
+def _uc8_capture(path, n_frames, seed, total, rate=2e6, spacing=3700):
+    frames = encoder.random_mixed_frames(n_frames, seed=seed)
+    iq, truth = encoder.make_capture(frames, rate=rate, snr_db=20.0,
+                                     spacing=spacing, seed=seed,
+                                     total_samples=total)
+    return _write_uc8(path, iq), truth
+
+
+@pytest.fixture(scope="module")
+def capture(tmp_path_factory, native_ok):
+    """A uc8 capture of mixed traffic over 3+ blocks, and its truth."""
+    return _uc8_capture(str(tmp_path_factory.mktemp("cap") / "cap.uc8"), 14,
+                        31, 3 * (1 << 14) + 5000)
+
+
+def _cfgs(**kw):
+    jc = JaxCfg(**kw)
+    return jc, DspConfig.from_dict(dataclasses.asdict(jc))
+
+
+def _flat(blocks):
+    return [m for b in blocks for m in b]
 
 
 def _key(msgs):
@@ -81,3 +104,270 @@ def test_runner_needs_a_card_by_default(capture):
     path, _ = capture
     with pytest.raises(RuntimeError, match="no CUDA device"):
         next(run_native_pipelined(DspConfig(**KW), path=path, fmt="uc8"))
+
+
+# --- C1: configs outside the planar gate take the full-block path -----------
+
+@pytest.mark.parametrize("kw,rate,spacing", [
+    (dict(channel_rate=20e6, block_size=1 << 15), 20e6, 6000),
+    (dict(noise_window=256, block_size=1 << 14), 2e6, 3700),
+    (dict(block_size=5 * 1024), 2e6, 1700),
+], ids=["sps10", "noise_window256", "block5x1024"])
+def test_runner_outside_planar_gate_matches_reference(tmp_path, native_ok,
+                                                       kw, rate, spacing):
+    """A config that the planar gate refuses runs through the full-block
+    path on the stacked int8 rows, as the reference's runner does: the
+    same messages, string for string, in the same order."""
+    from airmodes.io.native_stream import run_native_pipelined as jax_run
+    from airmodes_torch.io.native_stream import run_native_pipelined
+    from airmodes_torch.kernels.preamble import supported_planar_tile
+    jc, tc = _cfgs(max_detections=32, **kw)
+    assert supported_planar_tile(tc) is None
+    path, truth = _uc8_capture(str(tmp_path / "c.uc8"), 12, 41,
+                               3 * tc.block_size + 5000, rate=rate,
+                               spacing=spacing)
+    want = _flat(jax_run(jc, path=path, fmt="uc8", batch=2))
+    got = _flat(run_native_pipelined(tc, path=path, fmt="uc8", batch=2,
+                                     device="cpu"))
+    assert got == want
+    assert {t.hex for t in truth} <= {m.split()[1] for m in got}
+
+
+# --- run_native_pipelined's options against the reference ------------------
+
+def _run_both(path, kw, **opts):
+    """Both runners over `path` with the same options: (want, got,
+    reference stats, port stats)."""
+    from airmodes.dsp.host import BlockStats as JaxStats
+    from airmodes.io.native_stream import run_native_pipelined as jax_run
+    from airmodes_torch.dsp.host import BlockStats
+    from airmodes_torch.io.native_stream import run_native_pipelined
+    jc, tc = _cfgs(**kw)
+    js, ts = JaxStats(), BlockStats()
+    want = list(jax_run(jc, path=path, fmt="uc8", batch=2, stats=js, **opts))
+    got = list(run_native_pipelined(tc, path=path, fmt="uc8", batch=2,
+                                    stats=ts, device="cpu", **opts))
+    return want, got, js, ts
+
+
+@pytest.mark.parametrize("opts", [
+    dict(start_sample=7000),
+    dict(max_blocks=3),
+    dict(max_blocks=1),
+    dict(scale=64.0),
+    dict(epoch=1.7e9),
+    dict(ring_samples=1 << 15),
+], ids=["start_sample", "max_blocks3", "max_blocks1", "scale", "epoch",
+        "ring_samples"])
+def test_runner_option_matches_reference(capture, opts):
+    """Each restored option, set alike on both runners: the same blocks,
+    the same messages (timestamps and levels included) and the same
+    counters, ring_dropped among them."""
+    path, _ = capture
+    want, got, js, ts = _run_both(path, KW, **opts)
+    assert len(got) == len(want)
+    assert got == want
+    assert sum(len(b) for b in got) > 0
+    assert ts.ring_dropped == js.ring_dropped == 0
+    assert dataclasses.asdict(ts) == dataclasses.asdict(js)
+    if "max_blocks" in opts:
+        assert len(got) == opts["max_blocks"]
+    if "epoch" in opts:
+        assert all(float(m.split()[5]) > opts["epoch"] for b in got
+                   for m in b)
+
+
+def test_runner_options_change_the_output(capture):
+    """The options are not ignored: a later start sample shifts every
+    timestamp's block origin, a fixed gain changes the levels, an epoch
+    offsets the timestamps."""
+    path, _ = capture
+    _, base, _, _ = _run_both(path, KW)
+    _, start, _, _ = _run_both(path, KW, start_sample=7000)
+    _, scaled, _, _ = _run_both(path, KW, scale=64.0)
+    _, shifted, _, _ = _run_both(path, KW, epoch=100.0)
+    assert _flat(start) != _flat(base)
+    assert [m.split()[4] for m in _flat(scaled)] != \
+        [m.split()[4] for m in _flat(base)]
+    assert [float(m.split()[5]) - 100.0 for m in _flat(shifted)] == \
+        pytest.approx([float(m.split()[5]) for m in _flat(base)])
+
+
+def test_runner_ring_samples_check_matches_reference(capture):
+    """A ring too small to ever hold a frame is refused by both runners
+    before they start."""
+    from airmodes.io.native_stream import run_native_pipelined as jax_run
+    from airmodes_torch.io.native_stream import run_native_pipelined
+    path, _ = capture
+    jc, tc = _cfgs(**KW)
+    small = tc.block_size
+    with pytest.raises(ValueError, match="ring_samples"):
+        next(jax_run(jc, path=path, fmt="uc8", ring_samples=small))
+    with pytest.raises(ValueError, match="ring_samples"):
+        next(run_native_pipelined(tc, path=path, fmt="uc8",
+                                  ring_samples=small, device="cpu"))
+
+
+def test_ring_dropped_gauge_follows_the_stream(native_ok):
+    """`dropped` reads the framer's overrun counter, which a file stream
+    never raises; the port's IQStream pushes, ends and counts like the
+    reference's."""
+    from airmodes import native as jnative
+    from airmodes_torch import native
+    jc, tc = _cfgs(**KW)
+    rng = np.random.default_rng(5)
+    iq = ((rng.standard_normal(2 * tc.block_size + 999)
+           + 1j * rng.standard_normal(2 * tc.block_size + 999)) * 0.1
+          ).astype(np.complex64)
+    T = tc.left_halo + tc.block_size + tc.right_halo
+    rows = {}
+    for name, mod, cfg in (("jax", jnative, jc), ("torch", native, tc)):
+        st = mod.IQStream(cfg)
+        assert st.push(iq) == len(iq)
+        assert st.available == len(iq)
+        st.set_eof()
+        out = []
+        while True:
+            xi, xq = np.zeros(T + 64, np.int8), np.zeros(T + 64, np.int8)
+            start = st.next_block_planar_i8(xi, xq, scale=200.0)
+            if start is None:
+                break
+            out.append((start, xi.copy(), xq.copy()))
+        assert st.dropped == 0
+        st.close()
+        rows[name] = out
+    assert len(rows["torch"]) == len(rows["jax"]) == 3
+    for (s0, i0, q0), (s1, i1, q1) in zip(rows["torch"], rows["jax"]):
+        assert s0 == s1
+        np.testing.assert_array_equal(i0, i1)
+        np.testing.assert_array_equal(q0, q1)
+
+
+# --- run_native_channels -----------------------------------------------------
+
+@pytest.fixture(scope="module")
+def channel_captures(tmp_path_factory, native_ok):
+    """Four uc8 captures: three of traffic with unequal lengths (4, 3 and 2
+    blocks) and one silent (noise only, 3 blocks)."""
+    d = tmp_path_factory.mktemp("chans")
+    n = 1 << 14
+    out = []
+    for c, nblk in enumerate((4, 3, 2)):
+        out.append(_uc8_capture(str(d / f"ch{c}.uc8"), 4 * nblk, 50 + c,
+                                nblk * n + 3000))
+    rng = np.random.default_rng(9)
+    m = 3 * n + 3000
+    iq = ((rng.standard_normal(m) + 1j * rng.standard_normal(m)) * 0.05
+          ).astype(np.complex64)
+    out.append((_write_uc8(str(d / "silent.uc8"), iq), []))
+    return out
+
+
+def test_run_native_channels_matches_reference(channel_captures):
+    """The port of test_native.py's test_run_native_channels_multi:
+    reference against port on the CPU, channel for channel and step for
+    step. A channel that has ended yields None; the silent channel yields
+    [] while it lives."""
+    from airmodes.io.native_stream import run_native_channels as jax_run
+    from airmodes_torch.dsp.host import BlockStats
+    from airmodes_torch.io.native_stream import run_native_channels
+    paths = [p for p, _ in channel_captures]
+    jc, tc = _cfgs(**KW)
+    want = list(jax_run(paths, jc, fmt="uc8"))
+    stats = BlockStats()
+    got = list(run_native_channels(paths, tc, fmt="uc8", stats=stats,
+                                   device="cpu"))
+    assert got == want
+    assert len(got) == 5
+    # lengths 4, 3, 2 and 3 blocks (+ the tail each framer pads out)
+    ended = [[msgs is None for msgs in step] for step in got]
+    assert ended[0] == [False] * 4
+    assert ended[-1] == [False, True, True, True]
+    assert [step[3] for step in got] == [[], [], [], [], None]
+    for c, (_, truth) in enumerate(channel_captures[:3]):
+        seen = {m.split()[1] for step in got for m in (step[c] or [])}
+        assert {t.hex for t in truth} <= seen, c
+    assert stats.ring_dropped == 0
+
+
+@pytest.mark.parametrize("opts", [dict(max_blocks=2),
+                                  dict(start_sample=5000, scale=90.0,
+                                       epoch=12.5)],
+                         ids=["max_blocks", "start_scale_epoch"])
+def test_run_native_channels_options_match_reference(channel_captures, opts):
+    from airmodes.io.native_stream import run_native_channels as jax_run
+    from airmodes_torch.io.native_stream import run_native_channels
+    paths = [p for p, _ in channel_captures[:2]]
+    jc, tc = _cfgs(**KW)
+    want = list(jax_run(paths, jc, fmt="uc8", **opts))
+    got = list(run_native_channels(paths, tc, fmt="uc8", device="cpu",
+                                   **opts))
+    assert got == want
+    if "max_blocks" in opts:
+        assert len(got) == opts["max_blocks"]
+
+
+def test_run_native_channels_outside_planar_gate(channel_captures, tmp_path):
+    """C1 on the channel runner: sps 10 through the full-block path."""
+    from airmodes.io.native_stream import run_native_channels as jax_run
+    from airmodes_torch.io.native_stream import run_native_channels
+    jc, tc = _cfgs(channel_rate=20e6, block_size=1 << 15, max_detections=32)
+    paths = [_uc8_capture(str(tmp_path / f"f{c}.uc8"), 8, 60 + c,
+                          (2 + c) * tc.block_size, rate=20e6,
+                          spacing=6000)[0] for c in range(2)]
+    want = list(jax_run(paths, jc, fmt="uc8"))
+    got = list(run_native_channels(paths, tc, fmt="uc8", device="cpu"))
+    assert got == want
+    assert sum(len(m or []) for step in got for m in step) > 0
+
+
+def test_run_native_channels_stops_early_and_cleans_up(channel_captures):
+    import threading
+    from airmodes_torch.io.native_stream import run_native_channels
+    before = threading.active_count()
+    gen = run_native_channels([p for p, _ in channel_captures],
+                              DspConfig(**KW), fmt="uc8", device="cpu")
+    next(gen)
+    gen.close()
+    assert threading.active_count() <= before
+
+
+def test_run_native_channels_needs_a_card_by_default(channel_captures):
+    from airmodes_torch.io.native_stream import run_native_channels
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        next(run_native_channels([channel_captures[0][0]], DspConfig(**KW),
+                                 fmt="uc8"))
+
+
+def test_native_available():
+    from airmodes.io.native_stream import native_available as jax_avail
+    from airmodes_torch.io.native_stream import native_available
+    assert native_available() == jax_avail()
+
+
+# --- on the card -------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_cuda_runners_match_cpu(cuda, channel_captures, capture):
+    """Both runners on the card yield what they yield on the CPU, inside
+    the planar gate (kernels B1 and B2) and outside it."""
+    from airmodes_torch.io.native_stream import (run_native_channels,
+                                                 run_native_pipelined)
+    paths = [p for p, _ in channel_captures]
+    for cfg in (DspConfig(**KW), DspConfig(noise_window=256, **KW)):
+        assert list(run_native_channels(paths, cfg, fmt="uc8",
+                                        device=cuda)) == \
+            list(run_native_channels(paths, cfg, fmt="uc8", device="cpu"))
+        assert list(run_native_pipelined(cfg, path=capture[0], fmt="uc8",
+                                         device=cuda)) == \
+            list(run_native_pipelined(cfg, path=capture[0], fmt="uc8",
+                                      device="cpu"))
