@@ -5,9 +5,10 @@ The counterpart of `airmodes/io/native_stream.py` (`run_native_pipelined`
 for one capture, `run_native_channels` for several, one batched device
 call per time step down the channel axis):
 
-- the C++ framer (native/iqstream.cc) reads the capture, converts the SDR
-  wire format, frames overlapped blocks, quantizes to int8 with per-block
-  AGC (gain = 120/peak) or a fixed gain (`scale`) and splits planar I/Q,
+- the C++ framer (native/iqstream.cc) reads the capture (or UDP
+  datagrams), converts the SDR wire format, frames overlapped blocks,
+  quantizes to int8 with per-block AGC (gain = 120/peak) or a fixed gain
+  (`scale`) and splits planar I/Q,
   on a FEEDER thread (a thread pool across channels), into page-locked
   host buffers when the target is a card;
 - a DISPATCH thread copies each batch to the device (non-blocking) and
@@ -75,18 +76,30 @@ def _planar_step(cfg: DspConfig, device):
 
 
 class _PlanarSource:
-    """One channel's native framer reading a capture file into planar int8
-    rows (P is the padded row length callers size their buffers to)."""
+    """One channel's native framer reading a capture file (or, with no
+    path, complex64 UDP datagrams) into planar int8 rows (P is the padded
+    row length callers size their buffers to)."""
 
-    def __init__(self, cfg: DspConfig, P: int, *, path: str,
-                 fmt: str = "complex64", start_sample: int = 0,
-                 ring_samples: Optional[int] = None):
+    def __init__(self, cfg: DspConfig, P: int, *, path: Optional[str] = None,
+                 fmt: str = "complex64", udp_host: str = "0.0.0.0",
+                 udp_port: int = 10000, start_sample: int = 0,
+                 throttle_sps: float = 0.0,
+                 ring_samples: Optional[int] = None,
+                 udp_timeout_s: float = 0.0):
+        # udp_timeout_s <= 0 = never time out (the C++ pump sets no
+        # SO_RCVTIMEO; close() shutdown()s the socket to unblock recv)
         from ..native import IQStream
         self.stream = IQStream(cfg, ring_samples=ring_samples)
         if P < self.stream.total:
             raise ValueError(f"planar row length {P} < stream row "
                              f"{self.stream.total}")
-        self.stream.start_file(path, fmt=fmt, offset_samples=start_sample)
+        if path is not None:
+            self.stream.start_file(path, fmt=fmt,
+                                   throttle_sps=throttle_sps,
+                                   offset_samples=start_sample)
+        else:
+            self.stream.start_udp(udp_host, udp_port,
+                                  timeout_s=udp_timeout_s)
 
     @property
     def dropped(self) -> int:
@@ -213,9 +226,12 @@ def _host_rows(batch: int, P: int, pinned: bool):
 def run_native_pipelined(
     cfg: DspConfig,
     *,
-    path: str,
+    path: Optional[str] = None,
     fmt: str = "complex64",
+    udp_host: str = "0.0.0.0",
+    udp_port: int = 10000,
     start_sample: int = 0,
+    throttle_sps: float = 0.0,
     epoch: float = 0.0,
     stats: Optional[host_mod.BlockStats] = None,
     batch: int = 8,
@@ -223,19 +239,25 @@ def run_native_pipelined(
     max_blocks: Optional[int] = None,
     scale: Optional[float] = None,
     ring_samples: Optional[int] = None,
+    udp_timeout_s: float = 0.0,
     device="cuda",
 ) -> Iterator[List[str]]:
-    """Drive a capture file through the native framer + planar demod.
+    """Drive a capture file (or, with no path, complex64 UDP datagrams on
+    udp_host:udp_port) through the native framer + planar demod.
 
     Generator yielding one wire-message list per owned block, in stream
     order, for at most `max_blocks` blocks from sample `start_sample`.
-    Runs on the card unless `device` asks for the CPU; with no card and
-    the default device it raises before opening the source."""
+    throttle_sps > 0 paces a file at that many samples per second;
+    udp_timeout_s > 0 ends a UDP stream after that much silence (0 never
+    does). Runs on the card unless `device` asks for the CPU; with no card
+    and the default device it raises before opening the source."""
     step, P = _planar_step(cfg, device)
     pinned = torch.device(device).type == "cuda"
-    src = _PlanarSource(cfg, P, path=path, fmt=fmt,
-                        start_sample=start_sample,
-                        ring_samples=ring_samples)
+    src = _PlanarSource(cfg, P, path=path, fmt=fmt, udp_host=udp_host,
+                        udp_port=udp_port, start_sample=start_sample,
+                        throttle_sps=throttle_sps,
+                        ring_samples=ring_samples,
+                        udp_timeout_s=udp_timeout_s)
 
     def produce(stop):
         n_done = 0

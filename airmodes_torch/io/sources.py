@@ -1,5 +1,10 @@
-"""IQ sources and block framing: a copy of the framers of
-`airmodes.io.sources` (the port imports nothing of the JAX package).
+"""IQ sources and block framing: a copy of `airmodes.io.sources` (the port
+imports nothing of the JAX package). Files, UDP datagrams and the encoder's
+synthetic traffic become framed blocks; `resampled_file_source` puts the
+streaming polyphase resampler (`resample.polyphase`, on a device) in front
+of the framer when the capture's rate is not the channel rate. SDR hardware
+sources (UHD, osmosdr) raise: their hardware libraries are not part of
+the port.
 
 A block is a (samples, start_sample) pair where samples has length
 left_halo + block_size + right_halo and start_sample is the global sample
@@ -10,11 +15,12 @@ block that owns its preamble start.
 
 from __future__ import annotations
 
-from typing import Iterator, Tuple
+import socket
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
-from ..config import DspConfig
+from ..config import DspConfig, SourceConfig
 
 Block = Tuple[np.ndarray, int]
 
@@ -48,8 +54,14 @@ class buffered_framer:
     Copy-minimal: pushed chunks are queued as views and each emitted block
     is assembled with ONE gathered copy into its own buffer."""
 
-    def __init__(self, cfg: DspConfig, start_sample: int = 0):
-        left, block, right = cfg.left_halo, cfg.block_size, cfg.right_halo
+    def __init__(self, cfg: DspConfig, start_sample: int = 0,
+                 geometry=None):
+        """geometry=(left, block, right) overrides cfg's halo geometry: the
+        fused resample path frames raw-rate windows with it
+        (io/stream.run_resampled_fused; the raw halos come from
+        resample.fused.raw_geometry, not cfg)."""
+        left, block, right = geometry or (cfg.left_halo, cfg.block_size,
+                                          cfg.right_halo)
         if block < left:
             raise ValueError(
                 f"block_size {block} < left_halo {left}: "
@@ -171,4 +183,117 @@ def file_source(path: str, cfg: DspConfig, *, dtype: str = "complex64",
                                    chunk_samples=1 << 22,
                                    offset_samples=start_sample):
         yield from framer.push(samples)
+    yield from framer.flush()
+
+
+def udp_source(cfg: DspConfig, host: str = "0.0.0.0", port: int = 10000,
+               *, max_blocks: Optional[int] = None, timeout_s: float = 5.0,
+               sock: Optional[socket.socket] = None) -> Iterator[Block]:
+    """Receive complex64 IQ over UDP (ref: radio.py UDP source branch).
+
+    `sock` injects a pre-bound socket (port 0 / testing); the stream ends
+    after `timeout_s` of silence and flushes the buffered tail.
+    timeout_s <= 0 or None blocks forever: a live receiver must survive
+    upstream feeder restarts of any length (modes_rx passes this by
+    default via --udp-timeout 0)."""
+    if sock is None:
+        sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        sock.bind((host, port))
+    sock.settimeout(timeout_s if timeout_s and timeout_s > 0 else None)
+    framer = buffered_framer(cfg)
+    emitted = 0
+    try:
+        while max_blocks is None or emitted < max_blocks:
+            try:
+                data, _ = sock.recvfrom(1 << 16)
+            except socket.timeout:
+                break
+            # tolerate malformed/truncated datagrams (the port is open to
+            # the network): drop the partial trailing sample, skip empties
+            data = data[: len(data) - len(data) % 8]
+            if not data:
+                continue
+            samples = np.frombuffer(data, dtype=np.complex64)
+            for block in framer.push(samples):
+                yield block
+                emitted += 1
+                if max_blocks is not None and emitted >= max_blocks:
+                    break
+        # stream ended (timeout or block cap): emit the buffered tail so a
+        # short transmission is not dropped wholesale (file_source flushes
+        # in the identical situation)
+        for block in framer.flush():
+            if max_blocks is not None and emitted >= max_blocks:
+                break
+            yield block
+            emitted += 1
+    finally:
+        sock.close()
+
+
+def synthetic_source(cfg: DspConfig, *, n_messages: int = 100,
+                     snr_db: float = 20.0, seed: int = 0,
+                     n_blocks: int = 4) -> Iterator[Block]:
+    """Encoder-driven source for self-test / benchmarking."""
+    from ..testing import encoder
+    frames = encoder.random_df17_frames(n_messages, seed=seed)
+    total = n_blocks * cfg.block_size
+    spacing = max(total // max(n_messages, 1), 600 * cfg.sps)
+    iq, _ = encoder.make_capture(
+        frames, rate=cfg.channel_rate, snr_db=snr_db, spacing=spacing,
+        seed=seed, total_samples=total)
+    yield from frame_blocks(iq, cfg)
+
+
+def open_source(src: SourceConfig, cfg: DspConfig) -> Iterator[Block]:
+    """Dispatch on SourceConfig.kind (ref: modes_rx -s option).
+
+    Raises when src.sample_rate != cfg.channel_rate: this dispatcher does
+    no resampling, and framing a wrong-rate capture would demodulate
+    garbage — route other rates through `resampled_file_source` the way
+    apps/modes_rx.py does."""
+    if abs(src.sample_rate - cfg.channel_rate) > 1e-3:
+        raise ValueError(
+            f"source rate {src.sample_rate:g} != channel rate "
+            f"{cfg.channel_rate:g}: resample first "
+            "(resample.polyphase.streaming_resampler; see modes_rx -r)")
+    if src.kind == "file":
+        if not src.path:
+            raise ValueError("file source needs a path")
+        return file_source(src.path, cfg)
+    if src.kind == "udp":
+        # default timeout 0: survive feeder restarts of any length
+        return udp_source(cfg, src.udp_host, src.udp_port,
+                          timeout_s=src.udp_timeout_s)
+    if src.kind == "synthetic":
+        return synthetic_source(cfg)
+    if src.kind in ("uhd", "osmocom"):
+        raise RuntimeError(
+            f"SDR hardware source '{src.kind}' requires the UHD/osmosdr "
+            "libraries, which the port does not include; use file/udp "
+            "sources")
+    raise ValueError(f"unknown source kind {src.kind}")
+
+
+def resampled_file_source(path: str, cfg: DspConfig, *, dtype: str,
+                          rate_in: float, start_sample: int = 0,
+                          device="cuda") -> Iterator[Block]:
+    """File capture at rate_in -> streaming polyphase resample to the
+    channel rate (on `device`) -> framed blocks: the resampling twin of
+    file_source.
+
+    start_sample is in output (channel-rate) samples; the input seek is
+    the nearest raw sample (resume phase approximate to < 1 chip, fine
+    for re-acquisition) and the global counter resumes there so
+    timestamps stay continuous. Raises without a card unless `device`
+    asks for the CPU, before the capture is opened."""
+    from ..resample.polyphase import rational_rate, streaming_resampler
+    p_up, q_dn = rational_rate(rate_in, cfg.channel_rate)
+    rs = streaming_resampler(p_up, q_dn, device=device)
+    in_skip = (start_sample * q_dn) // p_up
+    framer = buffered_framer(cfg, start_sample)
+    for chunk in raw_file_chunks(path, dtype=dtype,
+                                 offset_samples=in_skip):
+        yield from framer.push(rs.push(chunk))
+    yield from framer.push(rs.flush())
     yield from framer.flush()

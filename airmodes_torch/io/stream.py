@@ -14,6 +14,12 @@ Route selection copies the reference as it runs on its accelerator:
   kernels B1 and B2 (`demod_batch_packed_planar`); at batch 1 they take B3;
 - otherwise the full-block path without a hand kernel (`demod_block`).
 
+The resampled front end (`run_resampled_fused` and
+`run_resampled_fused_channels`, the counterparts of the reference's runners
+of those names) frames raw-rate windows of a capture and runs one fused
+device step per batch: group-matmul resample, device AGC and int8 quantize,
+the planar demod (kernels B1 and B2), as `resample.fused` sets out.
+
 A host batch goes over in a page-locked buffer when the target is a card:
 the runners stack each batch straight into one, and an entry holds its
 buffer until it is drained, so nothing is refilled in flight. The step
@@ -23,14 +29,18 @@ fetches them, one `.cpu()` per entry, in order.
 
 from __future__ import annotations
 
+import itertools
 from collections import deque
-from typing import Iterable, Iterator, List, Optional, Tuple
+from typing import Callable, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import DspConfig
 from ..dsp import host as host_mod
+from ..resample.fused import raw_geometry, resample_demod_packed_planar
+from ..resample.polyphase import rational_rate
+from . import sources as src_mod
 from ..dsp.pipeline import (demod_batch_packed, demod_block_packed,
                             iq_to_device_layout, resolve_device,
                             unpack_table)
@@ -128,19 +138,23 @@ def _dev_layout(block, quantize_i8: bool):
     return x, fs
 
 
-def _make_drain(cfg, epoch, stats, batched: bool):
+def _make_drain(cfg, epoch, stats, on_messages, batched: bool):
     """Entry drainer: entry = (packed table on the device, starts,
     full_scales, n_real, host buffer owner) -> per-block wire-message
-    lists (padding rows beyond n_real dropped)."""
+    lists (padding rows beyond n_real dropped), each also handed to
+    `on_messages` when given."""
     def drain(entry):
         packed, starts, scales, n_real, _ = entry
         arr = packed.cpu().numpy()
         out = []
         for j in range(n_real):
             table = unpack_table(arr[j] if batched else arr)
-            out.append(host_mod.table_to_messages(
+            msgs = host_mod.table_to_messages(
                 table, starts[j], cfg.channel_rate, epoch=epoch,
-                stats=stats, full_scale=scales[j]))
+                stats=stats, full_scale=scales[j])
+            if on_messages:
+                on_messages(msgs)
+            out.append(msgs)
         return out
     return drain
 
@@ -175,21 +189,23 @@ def run_pipelined(
     step=None,
     quantize_i8: bool = False,
     batch: int = 1,
+    on_messages: Optional[Callable[[List[str]], None]] = None,
     device="cuda",
 ) -> Iterator[List[str]]:
     """Drive framed blocks through the demod with `depth` steps in flight.
 
     batch > 1 stacks that many blocks per device call. Yields the
-    wire-message list per block, in stream order; a trailing partial batch
-    is padded with the last block and the padding's messages dropped.
-    Runs on the card unless `device` asks for the CPU; with no card and
-    the default device it raises before reading a block. `step(x, cfg)`,
-    when given, replaces the route the config selects."""
+    wire-message list per block, in stream order, and hands each to
+    `on_messages` when given; a trailing partial batch is padded with the
+    last block and the padding's messages dropped. Runs on the card
+    unless `device` asks for the CPU; with no card and the default device
+    it raises before reading a block. `step(x, cfg)`, when given, replaces
+    the route the config selects."""
     pinned = resolve_device(device).type == "cuda"
     if step is None:
         step = (_batch_step(cfg, device) if batch > 1
                 else _default_step(cfg, device))
-    drain = _make_drain(cfg, epoch, stats, batched=batch > 1)
+    drain = _make_drain(cfg, epoch, stats, on_messages, batched=batch > 1)
 
     if batch == 1:
         def dispatch1(acc):
@@ -281,6 +297,193 @@ def run_channels(
         starts = [items[c][1] if live[c] else 0 for c in range(C)]
         inflight.append((step(xb, cfg), starts,
                          [f for _, f in devs], live, owner))
+        if len(inflight) > depth:
+            yield drain_one()
+    while inflight:
+        yield drain_one()
+
+
+# --- the resampled front end: raw-rate windows -> fused device step ---------
+
+def _stack_planar(rows: List[Optional[np.ndarray]], pinned: bool):
+    """(C, 2, W) f32 planar tensor of complex64 raw windows (None rows are
+    silence), written straight into page-locked memory when the batch goes
+    to a card: the I and Q planes are strided copies out of each window,
+    with no interleaved intermediate. The caller holds the tensor until
+    its entry is drained."""
+    w = next(len(r) for r in rows if r is not None)
+    out = torch.empty((len(rows), 2, w), dtype=torch.float32,
+                      pin_memory=pinned)
+    buf = out.numpy()
+    for j, r in enumerate(rows):
+        if r is None:
+            buf[j] = 0.0
+        else:
+            buf[j, 0] = r.real
+            buf[j, 1] = r.imag
+    return out
+
+
+def _raw_windows(path, cfg, dtype, in_skip, geometry, max_blocks):
+    """Raw-rate windows (complex64, raw start counted from the seek point)
+    of a capture file, framed with the fused path's geometry."""
+    framer = src_mod.buffered_framer(cfg, start_sample=0, geometry=geometry)
+
+    def gen():
+        for chunk in src_mod.raw_file_chunks(path, dtype=dtype,
+                                             chunk_samples=1 << 22,
+                                             offset_samples=in_skip):
+            yield from framer.push(chunk)
+        yield from framer.flush()
+    return itertools.islice(gen(), max_blocks)
+
+
+def _fused_setup(cfg, rate_in, start_sample):
+    """(p, q, raw geometry, snapped start, raw seek) of a fused run.
+
+    The raw-domain equivalent of start_sample must be an integer raw
+    sample: flooring a fractional seek would shift the resampler grid by a
+    fraction of a sample against the reported counters (~83 ns of
+    permanent timestamp skew at 4 Msps). So the start snaps down to a
+    multiple of p; messages before the requested start are dropped by the
+    drain (_make_fused_drain)."""
+    p_up, q_dn = rational_rate(rate_in, cfg.channel_rate)
+    geometry = raw_geometry(cfg, p_up, q_dn)[:3]
+    start = start_sample - start_sample % p_up
+    return p_up, q_dn, geometry, start, start * q_dn // p_up
+
+
+def _make_fused_drain(cfg, epoch, stats, on_messages, req_start: int):
+    """Drainer for the fused runners: entry = ((packed table, device-AGC
+    gains), starts, n_real, host buffer) -> per-block wire-message lists,
+    with full_scale = gain/127 per row; messages before the requested
+    resume point (possible only in a snapped first window) are dropped."""
+    epoch_ns = int(round(epoch * 1e9))
+    irate = int(cfg.channel_rate)
+
+    def _sample_of(m: str) -> int:
+        # the message's global sample index from the wire's int64-ns
+        # field, relative to the epoch: ns = epoch_ns + samples*1e9//rate,
+        # so rounding (ns-epoch_ns)*rate/1e9 recovers samples exactly for
+        # any integral rate < 1 GHz (the float seconds field sits near
+        # 2^53 at a real epoch and lets every message through)
+        ns = int(m.split()[6])
+        return ((ns - epoch_ns) * irate + 500_000_000) // 1_000_000_000
+
+    def drain(entry):
+        (packed, gains), starts, n_real, _ = entry
+        arr = packed.cpu().numpy()
+        gs = gains.cpu().numpy()
+        out = []
+        for j in range(n_real):
+            table = unpack_table(arr[j])
+            msgs = host_mod.table_to_messages(
+                table, starts[j], cfg.channel_rate, epoch=epoch,
+                stats=stats, full_scale=float(gs[j]) / 127.0)
+            if starts[j] < req_start:
+                msgs = [m for m in msgs if _sample_of(m) >= req_start]
+            if on_messages:
+                on_messages(msgs)
+            out.append(msgs)
+        return out
+    return drain
+
+
+def run_resampled_fused(
+    path: str,
+    cfg: DspConfig,
+    *,
+    dtype: str,
+    rate_in: float,
+    start_sample: int = 0,
+    epoch: float = 0.0,
+    stats: Optional[host_mod.BlockStats] = None,
+    depth: int = 2,
+    batch: int = 1,
+    scale: Optional[float] = None,
+    max_blocks: Optional[int] = None,
+    on_messages: Optional[Callable[[List[str]], None]] = None,
+    device="cuda",
+) -> Iterator[List[str]]:
+    """The resampled front end of one capture on the card: raw-rate
+    windows (resample.fused.raw_geometry) -> one fused device step per
+    batch (group-matmul resample, device AGC or the fixed gain `scale`,
+    int8 quantize, the planar demod with kernels B1 and B2) -> wire
+    messages. Yields the wire-message list per block, in stream order, and
+    hands each to `on_messages` when given; a partial last batch is padded
+    with its last window. start_sample is in channel-rate samples. Runs on
+    the card unless `device` asks for the CPU; with no card and the
+    default device it raises before opening the capture."""
+    dev = resolve_device(device)
+    pinned = dev.type == "cuda"
+    p_up, q_dn, geometry, start, in_skip = _fused_setup(cfg, rate_in,
+                                                         start_sample)
+    gain = None if scale is None else np.float32(scale)
+
+    def dispatch(acc):
+        n_real = len(acc)
+        x = _stack_planar([w for w, _ in acc]
+                          + [acc[-1][0]] * (batch - n_real), pinned)
+        out = resample_demod_packed_planar(x, gain, cfg, p_up, q_dn,
+                                           device=dev)
+        # raw start k*raw_block -> channel-rate start + k*block
+        return (out, [start + s * p_up // q_dn for _, s in acc], n_real, x)
+
+    yield from _pump(_raw_windows(path, cfg, dtype, in_skip, geometry,
+                                  max_blocks), batch, depth, dispatch,
+                     _make_fused_drain(cfg, epoch, stats, on_messages,
+                                       start_sample))
+
+
+def run_resampled_fused_channels(
+    paths: List[str],
+    cfg: DspConfig,
+    *,
+    dtype: str,
+    rate_in: float,
+    start_sample: int = 0,
+    epoch: float = 0.0,
+    stats: Optional[host_mod.BlockStats] = None,
+    depth: int = 2,
+    scale: Optional[float] = None,
+    max_blocks: Optional[int] = None,
+    device="cuda",
+) -> Iterator[List[Optional[List[str]]]]:
+    """Multi-channel twin of run_resampled_fused: C raw-rate captures, one
+    batched fused device step per time step down the channel axis. Yields
+    one list per step; ended channels ride along as zero windows and yield
+    None (the run_channels contract). Runs on the card unless `device`
+    asks for the CPU."""
+    dev = resolve_device(device)
+    pinned = dev.type == "cuda"
+    p_up, q_dn, geometry, start, in_skip = _fused_setup(cfg, rate_in,
+                                                         start_sample)
+    iters = [iter(_raw_windows(p, cfg, dtype, in_skip, geometry, max_blocks))
+             for p in paths]
+    C = len(iters)
+    if C == 0:
+        return
+    gain = None if scale is None else np.float32(scale)
+    inflight: deque = deque()
+    fused_drain = _make_fused_drain(cfg, epoch, stats, None, start_sample)
+
+    def drain_one() -> List[Optional[List[str]]]:
+        entry, live = inflight.popleft()
+        msgs = fused_drain(entry)
+        return [msgs[c] if live[c] else None for c in range(C)]
+
+    while True:
+        items = [next(it, None) for it in iters]
+        live = [i is not None for i in items]
+        if not any(live):
+            break
+        x = _stack_planar([i[0] if i is not None else None for i in items],
+                          pinned)
+        starts = [start + (items[c][1] * p_up // q_dn if live[c] else 0)
+                  for c in range(C)]
+        out = resample_demod_packed_planar(x, gain, cfg, p_up, q_dn,
+                                           device=dev)
+        inflight.append(((out, starts, C, x), live))
         if len(inflight) > depth:
             yield drain_one()
     while inflight:

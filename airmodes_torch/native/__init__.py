@@ -1,11 +1,11 @@
 """ctypes binding for the native IQ streaming runtime (iqstream.cc).
 
-A copy of `airmodes.native` (the C++ framer: ring buffer, overlap-save
-framing as f32 blocks, or int8 quantization with per-block AGC or a fixed
-gain and the planar I/Q split) and of its loader, which imports only the standard
-library and numpy. Builds the shared library on first use with g++ (cached
-next to the source). Python<->C boundary is a C ABI — no pybind11
-dependency."""
+A copy of `airmodes.native` (the C++ framer: a file or UDP pump thread,
+ring buffer, overlap-save framing as f32 blocks, or int8 quantization with
+per-block AGC or a fixed gain and the planar I/Q split) and of its loader,
+which imports only the standard library and numpy. Builds the shared
+library on first use with g++ (cached next to the source). Python<->C
+boundary is a C ABI — no pybind11 dependency."""
 
 from __future__ import annotations
 
@@ -76,12 +76,21 @@ def load() -> ctypes.CDLL:
         lib.iq_stream_set_eof.argtypes = [vp]
         lib.iq_stream_dropped.restype = u64
         lib.iq_stream_dropped.argtypes = [vp]
+        lib.iq_stream_rcvbuf.restype = ip
+        lib.iq_stream_rcvbuf.argtypes = [vp]
+        lib.iq_quantize_planar_i8.restype = None
+        lib.iq_quantize_planar_i8.argtypes = [vp, vp, vp, u64, f32]
         lib.iq_stream_start_file.restype = ip
         lib.iq_stream_start_file.argtypes = [vp, cp, ip, ctypes.c_double,
                                              u64]
+        lib.iq_stream_start_udp.restype = ip
+        lib.iq_stream_start_udp.argtypes = [vp, cp, ip, ctypes.c_double]
         lib.iq_stream_next_block.restype = ip
         lib.iq_stream_next_block.argtypes = [vp, ctypes.c_void_p,
                                              ctypes.POINTER(i64)]
+        lib.iq_stream_next_block_i8.restype = ip
+        lib.iq_stream_next_block_i8.argtypes = [vp, ctypes.c_void_p,
+                                                ctypes.POINTER(i64), f32]
         lib.iq_stream_next_block_planar_i8.restype = ip
         lib.iq_stream_next_block_planar_i8.argtypes = [
             vp, ctypes.c_void_p, ctypes.c_void_p, u64,
@@ -99,11 +108,27 @@ def load() -> ctypes.CDLL:
 _FMT = {"complex64": 0, "f32": 0, "sc16": 1, "uc8": 2}
 
 
+def quantize_planar_i8(iq: np.ndarray, gain: float):
+    """complex64 (..., N) -> planar int8 (I, Q) arrays of the same shape,
+    int8 = round(f32 * gain) clipped to +-127 (np.round half-to-even
+    semantics, matching the Python quantizer bit for bit) in one fused
+    native pass."""
+    lib = load()
+    arr = np.ascontiguousarray(iq, dtype=np.complex64)
+    out_i = np.empty(arr.shape, np.int8)
+    out_q = np.empty(arr.shape, np.int8)
+    lib.iq_quantize_planar_i8(
+        arr.ctypes.data_as(ctypes.c_void_p),
+        out_i.ctypes.data_as(ctypes.c_void_p),
+        out_q.ctypes.data_as(ctypes.c_void_p), arr.size, float(gain))
+    return out_i, out_q
+
+
 class IQStream:
     """Native streaming source: ring buffer + overlap-save framer, read
-    as f32 (total, 2) blocks or as planar int8 rows, with per-block AGC or
-    a fixed gain. Filled from a file by the C++ pump thread, or by `push`
-    and `set_eof` from Python."""
+    as f32 or int8 (total, 2) blocks or as planar int8 rows, with per-block
+    AGC or a fixed gain. Filled from a file or a UDP socket by the C++ pump
+    thread, or by `push` and `set_eof` from Python."""
 
     def __init__(self, cfg, ring_samples: Optional[int] = None):
         lib = load()
@@ -183,6 +208,25 @@ class IQStream:
         if rc != 0:
             raise OSError(f"cannot open {path}")
 
+    def start_udp(self, host: str = "0.0.0.0", port: int = 10000,
+                  timeout_s: float = 5.0) -> None:
+        """Receive complex64 datagrams on host:port in the C++ pump thread.
+        timeout_s > 0 ends the stream after that much receive silence
+        (parity with io.sources.udp_source); <= 0 never times out."""
+        with self._lock:
+            rc = self._lib.iq_stream_start_udp(self._handle(),
+                                               host.encode(), port,
+                                               float(timeout_s))
+        if rc == -5:
+            raise OSError("stream already started")
+        if rc == -3:
+            # the C side fails loudly on non-numeric hosts (inet_pton)
+            raise OSError(f"udp host {host!r} is not a numeric IPv4 "
+                          "address (hostnames are not resolved here — "
+                          "use e.g. 127.0.0.1 or 0.0.0.0)")
+        if rc != 0:
+            raise OSError(f"cannot bind udp {host}:{port}")
+
     def set_eof(self) -> None:
         with self._lock:
             if self._h:
@@ -195,21 +239,32 @@ class IQStream:
             return int(self._lib.iq_stream_dropped(self._handle()))
 
     @property
+    def rcvbuf(self) -> int:
+        """Effective UDP socket receive buffer (bytes): the kernel may
+        silently clamp the requested 8 MB to net.core.rmem_max."""
+        with self._lock:
+            return int(self._lib.iq_stream_rcvbuf(self._handle()))
+
+    @property
     def available(self) -> int:
         with self._lock:
             return int(self._lib.iq_stream_available(self._handle()))
 
     # --- consumer -----------------------------------------------------------
 
-    def next_block(self) -> Optional[Tuple[np.ndarray, int]]:
-        """Next framed block as float32 (total, 2), in a buffer of its own,
-        or None at end of stream. Waits (with a short sleep loop) until
-        data is available."""
+    def next_block(self, out: Optional[np.ndarray] = None, stop=None
+                   ) -> Optional[Tuple[np.ndarray, int]]:
+        """Next framed block as float32 (total, 2), in `out` or a buffer of
+        its own, or None at end of stream. Waits (with a short sleep loop)
+        until data is available; a set `stop` threading.Event ends the
+        wait early (returns None), so a consumer waiting on a quiet live
+        source can be torn down."""
         import time as _t
-        # the C side writes total*2 floats into it
-        out = np.empty((self.total, 2), np.float32)
+        if out is None:
+            out = np.empty((self.total, 2), np.float32)
+        self._check_out(out, np.float32)
         start = ctypes.c_int64(0)
-        while True:
+        while not (stop is not None and stop.is_set()):
             with self._lock:
                 if not self._h:
                     return None
@@ -222,10 +277,34 @@ class IQStream:
                 return None
             _t.sleep(0.001)
 
-    def blocks(self):
-        """Generator over all f32 blocks until end of stream."""
+    def next_block_i8(self, scale: float = 127.0,
+                      out: Optional[np.ndarray] = None, stop=None
+                      ) -> Optional[Tuple[np.ndarray, int]]:
+        """Next framed block quantized to int8 (total, 2) with the fixed
+        gain int8 = round(f32 * scale), or None at end of stream."""
+        import time as _t
+        if out is None:
+            out = np.empty((self.total, 2), np.int8)
+        self._check_out(out, np.int8)
+        start = ctypes.c_int64(0)
+        while not (stop is not None and stop.is_set()):
+            with self._lock:
+                if not self._h:
+                    return None
+                rc = self._lib.iq_stream_next_block_i8(
+                    self._h, out.ctypes.data_as(ctypes.c_void_p),
+                    ctypes.byref(start), float(scale))
+            if rc == 1:
+                return out, int(start.value)
+            if rc == -1:
+                return None
+            _t.sleep(0.001)
+
+    def blocks(self, i8: bool = False, scale: float = 127.0):
+        """Generator over all blocks until end of stream: f32, or int8 with
+        the fixed gain `scale` when i8."""
         while True:
-            nxt = self.next_block()
+            nxt = self.next_block_i8(scale) if i8 else self.next_block()
             if nxt is None:
                 return
             yield nxt
@@ -283,6 +362,16 @@ class IQStream:
                 raise ValueError(
                     f"planar row too short: {out_i.size} < {self.total}")
             _t.sleep(0.001)
+
+    def _check_out(self, out, dtype) -> None:
+        # the C side unconditionally writes total*2 elements: a wrong
+        # dtype/shape/layout buffer is silent heap corruption, and these
+        # must be real raises (asserts vanish under python -O)
+        if out.dtype != dtype or out.shape != (self.total, 2) \
+                or not out.flags.c_contiguous:
+            raise ValueError(
+                f"out must be C-contiguous {np.dtype(dtype).name} "
+                f"({self.total}, 2); got {out.dtype} {out.shape}")
 
     def _check_planar_out(self, out_i, out_q) -> None:
         if out_i.dtype != np.int8 or out_q.dtype != np.int8 \

@@ -1,0 +1,143 @@
+"""Fused resample -> on-device int8 quantize -> planar demod, in PyTorch.
+
+The counterpart of `airmodes/resample/fused.py`: raw-rate planar f32 I/Q in,
+detection table out, with nothing on the host in between. The polyphase
+group matmuls (`polyphase.resample_groups_halo`, f32 with TF32 off), the
+per-channel device AGC and the int8 quantize are torch ops, as they are XLA
+ops in the reference; the demod is the port's planar path,
+`kernels.preamble.demod_batch_planar`, which launches kernels B1 and B2 on
+a card. Used by `io.stream.run_resampled_fused` and
+`run_resampled_fused_channels`.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..config import DspConfig
+from ..dsp.pipeline import pack_table, resolve_device
+from .polyphase import _GROUP_PQ_CAP, resample_groups_halo
+
+
+def quantize_i8(x: torch.Tensor, gain) -> torch.Tensor:
+    """Device twin of dsp.host.quantize_i8_np: round(f32 * gain) clipped to
+    +-127, round half to even (torch.round, as np.round and the native C
+    quantizer). NaN quantizes to 0 and +-inf saturates. `gain` is a scalar
+    or a tensor that broadcasts against x."""
+    if not isinstance(gain, torch.Tensor):
+        gain = float(np.float32(gain))
+    y = torch.clamp(torch.round(x * gain), -127, 127)
+    return torch.where(torch.isnan(y), 0.0, y).to(torch.int8)
+
+
+def raw_geometry(cfg: DspConfig, p: int, q: int) -> Tuple[int, int, int, int]:
+    """(raw_left, raw_block, raw_right, out_off) for the fused path.
+
+    A raw-rate window of raw_left + raw_block + raw_right samples (all
+    multiples of the input group gi = 128q, so windows stay aligned with
+    the offline resampler's global groups) resamples, first/last group as
+    matmul halo, to a channel-rate span that covers the demod block's
+    [left_halo | block | right_halo] window; out_off is where that window
+    starts inside the resampler output. Each raw halo is one gi group of
+    matmul lookaround plus enough groups to cover the demod halo:
+
+        raw_halo = gi * (ceil(halo * q / (p * gi)) + 1)
+    """
+    gi = 128 * q
+    raw_block = cfg.block_size * q // p
+    if raw_block * p != cfg.block_size * q or raw_block % gi:
+        raise ValueError(
+            f"block_size {cfg.block_size} not compatible with p/q={p}/{q}: "
+            f"needs block_size % {128 * p} == 0")
+    if p * q > _GROUP_PQ_CAP:
+        raise ValueError(
+            f"p/q={p}/{q}: group matrices exceed the {_GROUP_PQ_CAP} cap — "
+            "resample on the host instead (rational_rate with a smaller "
+            "max_denominator usually suffices)")
+
+    def halo(h: int) -> int:
+        return gi * (-(-(h * q) // (p * gi)) + 1)
+
+    raw_left, raw_right = halo(cfg.left_halo), halo(cfg.right_halo)
+    # output index of channel-rate sample (block_start - left_halo): the
+    # resampler emits samples for the raw interior [raw_left - gi, ...),
+    # i.e. starting at channel-rate index (raw_left - gi) * p / q (exact:
+    # raw_left - gi is a multiple of gi = 128q)
+    out_off = (raw_left - gi) * p // q - cfg.left_halo
+    assert out_off >= 0
+    return raw_left, raw_block, raw_right, out_off
+
+
+def resample_quantize_planar(iqp_raw, gain, cfg: DspConfig, p: int, q: int,
+                             taps_per_phase: int = 12):
+    """Front half of the fused step, on the input's device: planar
+    (C, 2, rawL+rawB+rawR) f32 raw -> ((C, 2, left+block+right) int8 at
+    the channel rate, (C,) f32 gains). gain=None runs per-channel device
+    AGC after the resample (120 over the largest finite |y| of the
+    channel's window, 1.0 on a zero peak); a scalar or (C,) gain is used
+    as given. p == q == 1 passes the window through: the group matmuls at
+    1/1 are a half-sample interpolator, not the identity."""
+    x = iqp_raw if isinstance(iqp_raw, torch.Tensor) \
+        else torch.from_numpy(np.ascontiguousarray(iqp_raw, np.float32))
+    raw_left, raw_block, raw_right, out_off = raw_geometry(cfg, p, q)
+    if x.ndim == 2:
+        x = x[None]
+    c = x.shape[0]
+    want = raw_left + raw_block + raw_right
+    if x.shape[1] != 2 or x.shape[2] != want:
+        raise ValueError(f"fused window must be planar (C, 2, {want}) "
+                         f"(raw_geometry), got {tuple(x.shape)}")
+    xc = x.reshape(2 * c, want)
+    win = cfg.left_halo + cfg.block_size + cfg.right_halo
+    if p == q == 1:
+        lo = raw_left - cfg.left_halo
+        y = xc[:, lo: lo + win]
+    else:
+        y = resample_groups_halo(xc, p, q, taps_per_phase)[
+            :, out_off: out_off + win]
+    if gain is None:
+        ay = torch.abs(y.reshape(c, 2 * win))
+        pk = torch.where(torch.isfinite(ay), ay, 0.0).amax(dim=1)
+        gains = 120.0 / torch.where(pk == 0, 1.0, pk)
+    else:
+        g = torch.as_tensor(gain, dtype=torch.float32, device=x.device)
+        gains = g.expand(c) if g.ndim == 0 else g
+    grow = gains.repeat_interleave(2)[:, None]
+    return quantize_i8(y, grow).reshape(c, 2, win), gains
+
+
+def resample_demod_planar(iq_raw, gain, cfg: DspConfig, p: int, q: int,
+                          taps_per_phase: int = 12, tile: int = None):
+    """Fused step on the input's device: planar (C, 2, rawL+rawB+rawR) f32
+    raw -> (DetectionTable with leading C, (C,) f32 gains), indices
+    relative to the owned block. Each int8 plane is zero-padded to
+    `planar_length(cfg, tile)` and demodulated by the planar path
+    (kernels B1 and B2 on a card; their plain versions on the CPU)."""
+    from ..kernels.preamble import demod_batch_planar, planar_length
+    y8, gains = resample_quantize_planar(iq_raw, gain, cfg, p, q,
+                                         taps_per_phase)
+    win = y8.shape[2]
+    plen = planar_length(cfg, tile)
+    xi = F.pad(y8[:, 0], (0, plen - win))
+    xq = F.pad(y8[:, 1], (0, plen - win))
+    return demod_batch_planar(xi, xq, cfg, tile=tile), gains
+
+
+def resample_demod_packed_planar(iq_raw, gain, cfg: DspConfig, p: int, q: int,
+                                 taps_per_phase: int = 12, tile: int = None,
+                                 device="cuda"):
+    """Fused step + pack_table on `device`: planar (C, 2, W) f32 raw (numpy
+    or a tensor; + gain, or None for the device AGC) -> ((C, K+1, 9) int32,
+    (C,) f32 gains). Runs on the card unless the caller asks for the
+    CPU."""
+    dev = resolve_device(device)
+    x = iq_raw if isinstance(iq_raw, torch.Tensor) \
+        else torch.from_numpy(np.ascontiguousarray(iq_raw, np.float32))
+    table, gains = resample_demod_planar(
+        x.to(dev, non_blocking=True), gain, cfg, p, q,
+        taps_per_phase=taps_per_phase, tile=tile)
+    return pack_table(table), gains

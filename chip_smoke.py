@@ -63,7 +63,25 @@ process per source, all at once), then:
      blocks at `DspConfig()`: B1 and B2 must launch, each channel must
      decode at least 99% of each DF, an ended channel must yield None, and
      every step must equal the CPU's; prints its end-to-end Msps;
- 13. prints one JSON line of per-kernel numbers, the card line, and last
+ 13. drives the resampled front end: `run_resampled_fused` over a 32-block
+     complex64 capture recorded at 10 Msps (p/q = 1/5) to `DspConfig()`,
+     batches of 8 (group-matmul resample with TF32 off, device AGC, int8
+     quantize, kernels B1 and B2), then `run_resampled_fused_channels` at
+     C = 4 over 6 Msps captures of 4, 4, 3 and 2 blocks to 4 Msps (p/q =
+     2/3); each batch's AGC gains must equal the CPU's within rtol 1e-6 and
+     its int8 >= 99.99% (never more than 1 apart), every block's messages
+     the CPU's field by field (ref_dbfs within 0.1 dB), B1 and B2 must
+     launch and every DF decode at >= 99%; prints the device step, the
+     group matmuls' share of it, the host-to-card copy and the end-to-end
+     rate; then the host path (the streaming resampler on the card ->
+     `run_pipelined`) over 8 blocks, and its rate;
+ 14. runs the CLI in-process, `airmodes_torch.apps.modes_rx.main`, with
+     --int8 on phase 6's uc8 capture (the native runner), -r 10e6 --int8
+     on phase 13's capture (the fused path) and with two of phase 12's
+     captures (the channel runner): each must exit 0, write the SQLite
+     aircraft rows of the library runner's messages through `parse` and
+     `output_sql`, and a stats record with the runner's counters;
+ 15. prints one JSON line of per-kernel numbers, the card line, and last
      {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero. Without a CUDA card, or without the
@@ -588,7 +606,8 @@ def phase_repeat_b34(cfg, b34_out, dev, iters, one_d=False):
 def profile_step(fn, smi, reps=5):
     """torch.profiler over `reps` device steps: the card's busy share of
     the window, kernel launches per step, and the kernels that take the
-    most device time."""
+    most device time; returns the device-side rows (us over the reps,
+    count, name), empty if the profiler saw no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -614,7 +633,7 @@ def profile_step(fn, smi, reps=5):
     if not rows:
         print("profile: the profiler saw no device time (not measured)",
               flush=True)
-        return
+        return rows
     n_kern = sum(r[1] for r in rows) / reps
     print(f"profile: {reps} device steps, wall {wall_us / reps:.1f} us per "
           f"step, device busy {busy / reps:.1f} us per step "
@@ -623,6 +642,7 @@ def profile_step(fn, smi, reps=5):
     for dev_us, count, key in sorted(rows, reverse=True)[:12]:
         print(f"profile:   {dev_us / reps:9.1f} us/step  x{count // reps:<4d} "
               f"{key[:90]}", flush=True)
+    return rows
 
 
 def decoded_per_df(msgs, truth):
@@ -1207,6 +1227,359 @@ def phase_channels(cfg, dev, tmp, smi):
     return launches
 
 
+RESAMPLED_RATE = 10e6        # BASELINE config 3: a 10 Msps front end
+RS_CHANNEL_BLOCKS = (4, 4, 3, 2)
+
+
+def write_raw_capture(cfg, path, n_blocks, rate_in, seed):
+    """complex64 capture at rate_in (an SDR rate the fused path resamples
+    to cfg.channel_rate) of n_blocks channel-rate blocks: mixed traffic,
+    13 frames per block at 15 dB. Frames start at raw sample 1003 + k *
+    spacing, spacing a multiple of the decimation q: at one sample per
+    chip after the resample, the sub-chip phase decides whether a frame
+    can decode, and 3 of 5 raw samples at 10 Msps is a decodable one (0
+    and 1 are not; 2, 3 and 4 decode every frame at 15 dB). Returns the
+    ground truth with raw sample indices."""
+    import numpy as np
+    from airmodes_torch.resample.polyphase import rational_rate
+    from airmodes_torch.testing import encoder
+    p, q = rational_rate(rate_in, cfg.channel_rate)
+    raw_block = cfg.block_size * q // p
+    spacing = raw_block // 14 // q * q
+    truth = []
+    every = encoder.random_mixed_frames(13 * n_blocks, seed=seed)
+    with open(path, "wb") as f:
+        for b in range(n_blocks):
+            iq, tr = encoder.make_capture(
+                every[13 * b: 13 * b + 13], rate=rate_in, snr_db=15.0,
+                spacing=spacing, start=1003, seed=seed * 1000 + b,
+                total_samples=raw_block)
+            for t in tr:
+                t.sample_index += b * raw_block
+            truth += tr
+            (iq / (float(np.max(np.abs(iq))) or 1.0) * 0.9).astype(
+                np.complex64).tofile(f)
+    return truth
+
+
+def _same_messages(card, cpu, what):
+    """The parity contract of the resampled path: the same messages in the
+    same order, field by field (df, hex, syndrome, status, timestamp, ns),
+    ref_dbfs within 0.1 dB. The resampler's f32 matmuls sum in another
+    order on the card than on the CPU, so an int8 sample inside a pulse
+    may differ by 1, which moves the reference level a little."""
+    if len(card) != len(cpu):
+        raise AssertionError(f"{what}: {len(card)} messages on the card, "
+                             f"{len(cpu)} on the CPU")
+    worst = 0.0
+    for a, b in zip(card, cpu):
+        fa, fb = a.split(), b.split()
+        worst = max(worst, abs(float(fa[4]) - float(fb[4])))
+        if fa[:4] + fa[5:] != fb[:4] + fb[5:] or worst > 0.1:
+            raise AssertionError(f"{what}: card {a!r} != CPU {b!r}")
+    return worst
+
+
+def _same_front(x, cfg, p, q, dev, what):
+    """The fused front half (resample, device AGC, int8 quantize) of one
+    batch on the card and on the CPU: gains within rtol 1e-6, int8 equal
+    in >= 99.99% of samples and never more than 1 apart. Returns the
+    count of differing samples and the total."""
+    import numpy as np
+    import torch
+    from airmodes_torch.resample.fused import resample_quantize_planar
+    y_card, g_card = resample_quantize_planar(x.to(dev), None, cfg, p, q)
+    y_cpu, g_cpu = resample_quantize_planar(x, None, cfg, p, q)
+    np.testing.assert_allclose(g_card.cpu().numpy(), g_cpu.numpy(),
+                               rtol=1e-6, err_msg=f"{what}: AGC gains")
+    d = (y_card.cpu().to(torch.int16) - y_cpu.to(torch.int16)).abs()
+    n_diff, n = int((d > 0).sum()), d.numel()
+    if int(d.max()) > 1 or n_diff > 1e-4 * n:
+        raise AssertionError(f"{what}: int8 card vs CPU: {n_diff} of {n} "
+                             f"differ, by up to {int(d.max())}")
+    return n_diff, n
+
+
+def _batches(it, n):
+    while True:
+        chunk = list(itertools.islice(it, n))
+        if not chunk:
+            return
+        yield chunk
+
+
+def phase_resampled(cfg, dev, tmp, smi):
+    """The resampled front end on the card, at DspConfig() from a 10 Msps
+    capture of 32 blocks (p/q = 1/5), then at C = 4 from 6 Msps captures
+    to 4 Msps (p/q = 2/3); then the host path (streaming resampler ->
+    run_pipelined) over 8 blocks. Returns the fused runs' launch counts
+    and the 10 Msps capture's path."""
+    import numpy as np
+    import torch
+    from airmodes_torch.config import DspConfig
+    from airmodes_torch.dsp.host import BlockStats
+    from airmodes_torch.io import sources, stream as S
+    from airmodes_torch.kernels import preamble as K
+    from airmodes_torch.resample import fused as RF
+    from airmodes_torch.resample.polyphase import (rational_rate,
+                                                   streaming_resampler)
+    print(f"resampled: TF32 {torch.backends.cuda.matmul.allow_tf32} "
+          f"(matmul), {torch.backends.cudnn.allow_tf32} (cuDNN); f32 "
+          f"matmul precision {torch.get_float32_matmul_precision()!r}",
+          flush=True)
+    path = os.path.join(tmp, "resampled.c64")
+    t0 = time.perf_counter()
+    truth = write_raw_capture(cfg, path, N_MAIN_BLOCKS, RESAMPLED_RATE, 21)
+    p, q = rational_rate(RESAMPLED_RATE, cfg.channel_rate)
+    geometry = RF.raw_geometry(cfg, p, q)[:3]
+    print(f"resampled: {N_MAIN_BLOCKS} blocks of {cfg.block_size * q // p} "
+          f"raw samples at {RESAMPLED_RATE / 1e6:g} Msps written in "
+          f"{time.perf_counter() - t0:.1f} s; p/q = {p}/{q}, raw window "
+          f"{geometry}", flush=True)
+
+    # every batch's front half on the card against the CPU
+    n_diff = n_all = 0
+    first = None
+    pinned = torch.device(dev).type == "cuda"
+    for k, acc in enumerate(_batches(S._raw_windows(
+            path, cfg, "complex64", 0, geometry, None), BATCH)):
+        x = S._stack_planar([w for w, _ in acc], pinned)
+        first = x if first is None else first
+        d, n = _same_front(x, cfg, p, q, dev, f"resampled batch {k}")
+        n_diff, n_all = n_diff + d, n_all + n
+    print(f"resampled: front half, every batch: AGC gains card == CPU "
+          f"(rtol 1e-6); int8 {n_diff} of {n_all} samples differ by 1 "
+          f"({n_diff / n_all:.2e}), none by more", flush=True)
+
+    xd = torch.empty(first.shape, dtype=torch.float32, device=dev)
+    copy_ms = time_ms(lambda: xd.copy_(first, non_blocking=True),
+                      device_only=False)
+    n_bytes = first.numel() * 4
+    step_ms = time_ms(lambda: RF.resample_demod_packed_planar(
+        xd, None, cfg, p, q, device=dev), device_only=False)
+    rows = profile_step(lambda: RF.resample_demod_packed_planar(
+        xd, None, cfg, p, q, device=dev), smi)
+    busy = sum(r[0] for r in rows)
+    gemm = sum(r[0] for r in rows if "gemm" in r[2].lower())
+    share = f"{100 * gemm / busy:.1f}%" if busy else "not measured"
+    out_samples = BATCH * cfg.block_size
+    print(f"resampled: device step {step_ms:.4f} ms per batch of {BATCH} "
+          f"= {out_samples / step_ms / 1e3:.1f} Msps at 2 Msps out, "
+          f"{out_samples * q / p / step_ms / 1e3:.1f} Msps raw; the group "
+          f"matmuls take {share} of its device time; host to card "
+          f"{n_bytes / 1e6:.1f} MB per batch in {copy_ms:.4f} ms "
+          f"({n_bytes / copy_ms / 1e6:.1f} GB/s) [{smi}]", flush=True)
+
+    stats = BlockStats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    blocks = list(S.run_resampled_fused(
+        path, cfg, dtype="complex64", rate_in=RESAMPLED_RATE, batch=BATCH,
+        stats=stats, device=dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    launches["B1"] = K.DETECT_CANDS_ROUTES["B1"]
+    print(f"resampled: run_resampled_fused launches {launches}; {stats}",
+          flush=True)
+    for kname in ("B1", "slice_windows"):
+        if launches[kname] <= 0:
+            raise AssertionError(f"resampled: kernel {kname} never "
+                                 f"launched")
+    t1 = time.perf_counter()
+    on_cpu = list(S.run_resampled_fused(
+        path, cfg, dtype="complex64", rate_in=RESAMPLED_RATE, batch=BATCH,
+        device="cpu"))
+    if len(blocks) != len(on_cpu):
+        raise AssertionError(f"resampled: {len(blocks)} blocks on the "
+                             f"card, {len(on_cpu)} on the CPU")
+    worst = max([_same_messages(a, b, f"resampled block {k}")
+                 for k, (a, b) in enumerate(zip(blocks, on_cpu))] + [0.0])
+    msgs = _messages(blocks)
+    print(f"resampled: all {len(msgs)} messages of the {len(blocks)} blocks "
+          f"on the card == on the CPU field by field, ref_dbfs within "
+          f"{worst:.2f} dB ({time.perf_counter() - t1:.1f} s on the CPU)",
+          flush=True)
+    _decode_check(msgs, truth, "resampled")
+    samples = N_MAIN_BLOCKS * cfg.block_size
+    print(f"resampled: end to end {samples / wall / 1e6:.1f} Msps at 2 Msps "
+          f"out ({samples * q / p / wall / 1e6:.1f} Msps raw) over "
+          f"{N_MAIN_BLOCKS} blocks ({wall:.3f} s) [{smi}]", flush=True)
+
+    # the host path: the streaming resampler on the card, then the f32
+    # runner, over the capture's first 8 blocks
+    n_host = BATCH
+    raw = np.fromfile(path, np.complex64, n_host * cfg.block_size * q // p)
+    rs = streaming_resampler(p, q, device=dev)
+    t0 = time.perf_counter()
+    got = sum(len(rs.push(raw[i: i + (1 << 20)]))
+              for i in range(0, len(raw), 1 << 20)) + len(rs.flush())
+    rs_wall = time.perf_counter() - t0
+    if got != len(raw) * p // q:
+        raise AssertionError(f"streaming_resampler gave {got} samples")
+    t0 = time.perf_counter()
+    host_msgs = _messages(S.run_pipelined(
+        itertools.islice(sources.resampled_file_source(
+            path, cfg, dtype="complex64", rate_in=RESAMPLED_RATE,
+            device=dev), n_host), cfg, batch=BATCH, device=dev))
+    torch.cuda.synchronize()
+    host_wall = time.perf_counter() - t0
+    inside = [t for t in truth
+              if t.sample_index * p // q + 300 * cfg.sps
+              < n_host * cfg.block_size]
+    _decode_check(host_msgs, inside, "resampled host path")
+    print(f"resampled: host path (streaming_resampler on the card, "
+          f"{rs.stride} raw samples per stride, -> run_pipelined f32, B4) "
+          f"over {n_host} blocks: {len(host_msgs)} messages, end to end "
+          f"{n_host * cfg.block_size / host_wall / 1e6:.2f} Msps at 2 Msps "
+          f"out ({host_wall:.3f} s); the streaming resampler alone "
+          f"{len(raw) / rs_wall / 1e6:.2f} Msps raw ({rs_wall:.3f} s) "
+          f"[{smi}]", flush=True)
+
+    # C = 4 channels of 6 Msps captures to 4 Msps, ending at different
+    # blocks
+    cfg4 = DspConfig(channel_rate=4e6)
+    paths, truths = [], []
+    for c, n in enumerate(RS_CHANNEL_BLOCKS):
+        paths.append(os.path.join(tmp, f"rs{c}.c64"))
+        truths.append(write_raw_capture(cfg4, paths[-1], n, 6e6, 31 + c))
+    p4, q4 = rational_rate(6e6, cfg4.channel_rate)
+    geom4 = RF.raw_geometry(cfg4, p4, q4)[:3]
+    x = S._stack_planar([next(iter(S._raw_windows(
+        pth, cfg4, "complex64", 0, geom4, 1)))[0] for pth in paths],
+        pinned)
+    _same_front(x, cfg4, p4, q4, dev, "resampled channels, step 0")
+    stats = BlockStats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    steps = list(S.run_resampled_fused_channels(
+        paths, cfg4, dtype="complex64", rate_in=6e6, stats=stats,
+        device=dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    chan = dict(K.LAUNCHES)
+    chan["B1"] = K.DETECT_CANDS_ROUTES["B1"]
+    for kname in ("B1", "slice_windows"):
+        if chan[kname] <= 0:
+            raise AssertionError(f"resampled channels: kernel {kname} "
+                                 f"never launched")
+    if [[m is None for m in st] for st in steps] != [
+            [k >= n for n in RS_CHANNEL_BLOCKS]
+            for k in range(max(RS_CHANNEL_BLOCKS))]:
+        raise AssertionError("resampled channels: ended channels wrong")
+    on_cpu = list(S.run_resampled_fused_channels(
+        paths, cfg4, dtype="complex64", rate_in=6e6, device="cpu"))
+    if len(on_cpu) != len(steps):
+        raise AssertionError("resampled channels: step counts differ")
+    for k, (a, b) in enumerate(zip(steps, on_cpu)):
+        for c in range(len(paths)):
+            if (a[c] is None) != (b[c] is None):
+                raise AssertionError(f"resampled channels: step {k} ch{c}")
+            _same_messages(a[c] or [], b[c] or [],
+                           f"resampled channels step {k} ch{c}")
+    for c, tr in enumerate(truths):
+        _decode_check([m for st in steps for m in (st[c] or [])], tr,
+                      f"resampled channels ch{c}")
+    samples = sum(RS_CHANNEL_BLOCKS) * cfg4.block_size
+    print(f"resampled channels: run_resampled_fused_channels, C = "
+          f"{len(paths)}, 6 -> 4 Msps (p/q = {p4}/{q4}, tile "
+          f"{K.default_tile(cfg4)}), blocks {RS_CHANNEL_BLOCKS}: every step "
+          f"== CPU, ended channels None; launches {chan}; {stats}; end to "
+          f"end {samples / wall / 1e6:.1f} Msps at 4 Msps out ({wall:.3f} s)"
+          f" [{smi}]", flush=True)
+    return launches, chan, path
+
+
+class _FixedClock:
+    """The CLI's clock in phase 14: its epoch is 0.0, as the library
+    runners' default, so their messages, SQLite rows and stats compare
+    exactly. Sleeps are real."""
+    sleep = staticmethod(time.sleep)
+
+    @staticmethod
+    def time():
+        return 0.0
+
+
+def _sql_rows(db):
+    import sqlite3
+    con = sqlite3.connect(db)
+    try:
+        return con.execute("SELECT * FROM aircraft ORDER BY icao").fetchall()
+    finally:
+        con.close()
+
+
+def phase_cli(cfg, dev, tmp, smi, uc8, c64, chans):
+    """`modes_rx.main` in-process on the card: --int8 on a 2 Msps uc8
+    capture (the native runner), -r 10e6 --int8 (the fused path) and two
+    -s captures (the channel runner). Each must exit 0, write the SQLite
+    aircraft rows of the library runner's messages through parse and
+    output_sql, and write a final stats record with the runner's
+    BlockStats counters."""
+    from unittest import mock
+    import torch
+    from airmodes_torch.apps import modes_rx
+    from airmodes_torch.decode.parse import parse
+    from airmodes_torch.dsp.host import BlockStats
+    from airmodes_torch.io import native_stream as N, stream as S
+    from airmodes_torch.outputs import output_sql
+    runs = [
+        ("native int8", ["-s", uc8, "--file-format", "uc8", "--int8"],
+         lambda st: _messages(N.run_native_pipelined(
+             cfg, path=uc8, fmt="uc8", batch=BATCH, stats=st, device=dev)),
+         N_MAIN_BLOCKS),
+        ("fused resample", ["-s", c64, "-r", f"{RESAMPLED_RATE:g}",
+                            "--int8"],
+         lambda st: _messages(S.run_resampled_fused(
+             c64, cfg, dtype="complex64", rate_in=RESAMPLED_RATE,
+             batch=BATCH, stats=st, device=dev)),
+         N_MAIN_BLOCKS),
+        ("channels", ["-s", chans[0], "-s", chans[1], "--file-format",
+                      "uc8", "--int8"],
+         lambda st: [m for step in N.run_native_channels(
+             chans, cfg, fmt="uc8", stats=st, device=dev)
+             for ch in step for m in (ch or [])],
+         2 * CHANNEL_BLOCKS[0]),
+    ]
+    for k, (name, argv, library, n_blocks) in enumerate(runs):
+        db = os.path.join(tmp, f"cli{k}.db")
+        sj = os.path.join(tmp, f"cli{k}.stats")
+        with mock.patch.object(modes_rx, "time", _FixedClock):
+            t0 = time.perf_counter()
+            rc = modes_rx.main(argv + ["-n", "-d", db, "--stats-json", sj,
+                                       "--stats-interval", "0",
+                                       "--block-size", str(cfg.block_size),
+                                       "--device", str(dev)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"cli {name}: exit code {rc}")
+        stats = BlockStats()
+        msgs = library(stats)
+        ref_db = os.path.join(tmp, f"lib{k}.db")
+        sql = output_sql(ref_db, parse(None))
+        for m in msgs:
+            sql.output(m)
+        sql.close()
+        got, want = _sql_rows(db), _sql_rows(ref_db)
+        if got != want or not got:
+            raise AssertionError(f"cli {name}: {len(got)} aircraft rows, "
+                                 f"the library's {len(want)}")
+        with open(sj) as f:
+            rec = json.loads(f.read().splitlines()[-1])
+        for key in ("preambles", "crc_ok", "corrected", "crc_fail",
+                    "emitted", "overflow", "ring_dropped"):
+            if rec[key] != getattr(stats, key):
+                raise AssertionError(f"cli {name}: stats {key} "
+                                     f"{rec[key]} != {getattr(stats, key)}")
+        print(f"cli: {name}: exit 0, {len(got)} aircraft rows == the "
+              f"library runner's, stats record == its BlockStats "
+              f"({rec['emitted']} emitted); {wall:.3f} s wall, "
+              f"{n_blocks * cfg.block_size / wall / 1e6:.1f} Msps [{smi}]",
+              flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1345,13 +1718,16 @@ def main() -> int:
         phase_reports(main_msgs, truth, tmp)
         b5_launches = phase_planar_options(
             cfg, dev, os.path.join(tmp, "main.uc8"), truth, smi)
-    with tempfile.TemporaryDirectory() as tmp:
         routes, truth = phase_main_f32(cfg, dev, tmp, smi)
         b6_launches = phase_1d(cfg, dev, os.path.join(tmp, "main.c64"),
                                truth, tmp, smi)
-    with tempfile.TemporaryDirectory() as tmp:
         phase_c1(dev, tmp, smi)
         chan_launches = phase_channels(cfg, dev, tmp, smi)
+        rs_launches, rs_chan_launches, rs_path = phase_resampled(
+            cfg, dev, tmp, smi)
+        phase_cli(cfg, dev, tmp, smi, os.path.join(tmp, "main.uc8"),
+                  rs_path, [os.path.join(tmp, "ch0.uc8"),
+                            os.path.join(tmp, "ch1.uc8")])
 
     def bound(n_bytes, n_ops):
         mem_s, ops_s = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_INSTR_S
@@ -1436,6 +1812,10 @@ def main() -> int:
           f"{chan_launches['slice_windows']} times on the run_native_channels "
           f"path (the int8 main path: {launches['B1']} and "
           f"{launches['slice_windows']})", flush=True)
+    print(f"resampled: B1 launched {rs_launches['B1']} times and B2 "
+          f"{rs_launches['slice_windows']} times on run_resampled_fused, "
+          f"{rs_chan_launches['B1']} and {rs_chan_launches['slice_windows']} "
+          f"on run_resampled_fused_channels", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -40,7 +40,13 @@ def test_every_module_is_found():
                  "airmodes_torch.config",
                  "airmodes_torch.crc",
                  "airmodes_torch.decode",
-                 "airmodes_torch.outputs"):
+                 "airmodes_torch.outputs",
+                 "airmodes_torch.resample.polyphase",
+                 "airmodes_torch.resample.fused",
+                 "airmodes_torch.io.relay",
+                 "airmodes_torch.io.netclient",
+                 "airmodes_torch.utils.profiling",
+                 "airmodes_torch.apps.modes_rx"):
         assert want in names
 
 

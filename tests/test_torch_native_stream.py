@@ -349,6 +349,142 @@ def test_native_available():
 
 # --- on the card -------------------------------------------------------------
 
+
+# --- the native framer's UDP input and int8 reads ----------------------------
+
+def test_iqstream_reads_match_reference(native_ok):
+    """IQStream.next_block(out, stop), next_block_i8, blocks(i8, scale) and
+    quantize_planar_i8 on a pushed capture: the same arrays and starts as
+    the reference's IQStream, and the reference's quantize rule."""
+    from airmodes import native as jax_native
+    from airmodes.config import DspConfig as JaxCfg
+    from airmodes_torch import native
+    from airmodes_torch.dsp.host import quantize_i8_np
+    rng = np.random.default_rng(8)
+    n = 3 * (1 << 14) + 999
+    iq = ((rng.standard_normal(n) + 1j * rng.standard_normal(n)) * 0.3
+          ).astype(np.complex64)
+    kw = dict(block_size=1 << 14, max_detections=16)
+    for i8, scale in ((False, 127.0), (True, 127.0), (True, 90.0)):
+        streams = [native.IQStream(DspConfig(**kw)),
+                   jax_native.IQStream(JaxCfg(**kw))]
+        try:
+            for st in streams:
+                st.push(iq)
+                st.set_eof()
+            got, want = (list(st.blocks(i8=i8, scale=scale))
+                         for st in streams)
+        finally:
+            for st in streams:
+                st.close()
+        assert len(got) == len(want) == 4
+        for (a, sa), (b, sb) in zip(got, want):
+            assert sa == sb and a.dtype == b.dtype
+            assert np.array_equal(a, b)
+    gi, gq = native.quantize_planar_i8(iq, 100.0)
+    wi, wq = jax_native.quantize_planar_i8(iq, 100.0)
+    assert np.array_equal(gi, wi) and np.array_equal(gq, wq)
+    assert np.array_equal(gi, quantize_i8_np(iq.real, 100.0))
+
+
+def test_iqstream_next_block_into_a_buffer(native_ok):
+    """next_block fills a caller's buffer (checked for dtype, shape and
+    layout), and a set stop event ends a wait on a quiet stream."""
+    import threading
+    from airmodes_torch import native
+    cfg = DspConfig(block_size=1 << 14, max_detections=16)
+    st = native.IQStream(cfg)
+    try:
+        out = np.empty((st.total, 2), np.float32)
+        for bad in (np.empty((st.total, 2), np.float64),
+                    np.empty((st.total + 1, 2), np.float32),
+                    np.empty((2, st.total), np.float32).T):
+            with pytest.raises(ValueError, match="C-contiguous"):
+                st.next_block(bad)
+        with pytest.raises(ValueError, match="C-contiguous"):
+            st.next_block_i8(out=np.empty((st.total, 2), np.float32))
+        stop = threading.Event()
+        stop.set()
+        assert st.next_block(out, stop=stop) is None
+        st.push(np.ones(2 * cfg.block_size, np.complex64))
+        got = st.next_block(out)
+        assert got is not None and got[0] is out and got[1] == 0
+    finally:
+        st.close()
+
+
+def test_iqstream_udp_rejects_a_hostname(native_ok):
+    from airmodes_torch import native
+    st = native.IQStream(DspConfig(block_size=1 << 14, max_detections=16))
+    try:
+        with pytest.raises(OSError, match="numeric"):
+            st.start_udp("localhost", 0)
+    finally:
+        st.close()
+
+
+def _free_udp_port():
+    import socket
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def test_runner_udp_matches_file(capture, tmp_path, monkeypatch):
+    """run_native_pipelined over complex64 UDP datagrams (the C++ pump
+    bound to 127.0.0.1, ending at a 1 s silence) gives the messages of the
+    same samples read from a file; the socket's receive buffer is
+    reported. A sender thread starts once the pump has bound."""
+    import socket
+    import threading
+    import time
+    from airmodes_torch import native
+    from airmodes_torch.io.native_stream import run_native_pipelined
+    path, truth = capture
+    u = np.fromfile(path, np.uint8).astype(np.float32)
+    iq = ((u - np.float32(127.5)) * np.float32(1 / 127.5)).view(np.complex64)
+    c64 = str(tmp_path / "cap.c64")
+    iq.tofile(c64)
+    want = _flat(run_native_pipelined(DspConfig(**KW), path=c64, batch=2,
+                                      device="cpu"))
+    bound, rcvbuf = threading.Event(), []
+    real_start = native.IQStream.start_udp
+
+    def start_udp(self, *a, **kw):
+        real_start(self, *a, **kw)
+        rcvbuf.append(self.rcvbuf)
+        bound.set()
+    monkeypatch.setattr(native.IQStream, "start_udp", start_udp)
+    port = _free_udp_port()
+
+    def send():
+        assert bound.wait(30)
+        snd = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        raw = iq.tobytes()
+        for off in range(0, len(raw), 8192):
+            snd.sendto(raw[off: off + 8192], ("127.0.0.1", port))
+            time.sleep(0.0005)
+        snd.close()
+    th = threading.Thread(target=send, daemon=True)
+    th.start()
+    got = _flat(run_native_pipelined(DspConfig(**KW), udp_host="127.0.0.1",
+                                     udp_port=port, udp_timeout_s=1.0,
+                                     batch=2, device="cpu"))
+    th.join(10)
+    assert not th.is_alive()
+    assert got == want and rcvbuf and rcvbuf[0] > 0
+    assert {t.hex for t in truth} <= {m.split()[1] for m in got}
+
+
+def test_runner_throttle_keeps_the_messages(capture):
+    """throttle_sps paces the file pump; what comes out is unchanged."""
+    path, _ = capture
+    want, got, _, _ = _run_both(path, KW, throttle_sps=5e7)
+    base, _, _, _ = _run_both(path, KW)
+    assert got == want == base
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
