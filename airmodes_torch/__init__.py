@@ -3,10 +3,12 @@ NVIDIA Hopper: the demod paths on the card, the decode stack and the
 output plugins on the host.
 
 A port of the `airmodes` JAX package, which stays beside it as the
-reference. This package imports torch, numpy and the standard library,
-never JAX and nothing of `airmodes`; it keeps its own copies of the
-constants, the config, the CRC tables, the host-side table decoder, the C++
-framer, the decoders, the output plugins and the capture encoder. Entry
+reference. This package imports torch, numpy and the standard library
+(and, optionally, pyzmq for the relay and Qt for the GUI, as the
+reference does), never JAX and nothing of `airmodes`; it keeps its own
+copies of the constants, the config, the CRC tables, the host-side table
+decoder, the C++ framer, the decoders, the output plugins and the capture
+encoder. Entry
 points run on the card (`device="cuda"`) unless the caller asks for the
 CPU, where the kernels' plain PyTorch versions stand in.
 """

@@ -16,8 +16,9 @@ plain versions):
 Where the port differs from the reference: the fused resample path runs
 when the device is a card (the reference's, on a TPU); `--batch 0` picks 8
 on a card and 1 on the CPU; `--compile-cache` is accepted and does
-nothing; `--pub` (a ZeroMQ relay, which needs pyzmq) exits 2; and every
-validation exit closes the plugins already registered.
+nothing; and every validation exit closes the plugins already registered.
+`--pub` publishes on a ZeroMQ PUB socket (pyzmq, optional as in the
+reference).
 
 Clean shutdown on KeyboardInterrupt closes sockets/DB like the reference.
 """
@@ -160,8 +161,7 @@ def build_argparser() -> argparse.ArgumentParser:
                      "many seconds [1.0]; per-channel topics are never "
                      "deduplicated")
     out.add_argument("--pub", default=None, metavar="ADDR",
-                     help="publish raw messages on a zmq PUB socket: not "
-                     "available in the port (it needs pyzmq); exits 2")
+                     help="also publish raw messages on a zmq PUB socket")
     out.add_argument("--profile", default=None, metavar="LOGDIR",
                      help="capture a torch.profiler Chrome trace of the "
                      "run into LOGDIR")
@@ -681,12 +681,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         bus.subscribe("dl_data", plug.output)
         closers.append(plug.close)
     if args.pub:
-        print("--pub is not available in the PyTorch port: the ZeroMQ "
-              "relay needs pyzmq, which the port does not use; feed remote "
-              "consumers with -w (raw), -B (Beast) or -P (SBS-1)",
-              file=sys.stderr)
-        _close_all(closers)
-        return 2
+        from ..io.relay import zmq_pubsub_iface
+        relay = zmq_pubsub_iface(pubaddr=args.pub)
+        bus.subscribe("dl_data", lambda m: relay.publish("dl_data", m))
+        closers.append(relay.close)
 
     # --- source ----------------------------------------------------------
     if args.file_format in ("beast", "beastgps", "avr"):

@@ -81,7 +81,21 @@ process per source, all at once), then:
      captures (the channel runner): each must exit 0, write the SQLite
      aircraft rows of the library runner's messages through `parse` and
      `output_sql`, and a stats record with the runner's counters;
- 15. prints one JSON line of per-kernel numbers, the card line, and last
+ 15. drives the sharded path (`airmodes_torch.dist`):
+     `PodPipeline(DspConfig(), n_channel=2, n_time=4)` chooses the planar
+     path on the card and streams two channels of mixed traffic (4 steps
+     plus a 4,321-sample tail, frames planted across shard and step
+     boundaries) through `run_stream`: every step's messages must equal
+     the same pipeline's on the CPU, and the unsharded planar step's over
+     the same blocks, every DF decode at >= 99%, every boundary frame
+     decode, and B1 and B2 launch once per step; prints the step against
+     the unsharded 8-block step and the end-to-end rate; then the f32
+     pipeline over the first two steps (== the CPU's), the fused
+     resample -> int8 -> planar step on a (1, 4) mesh at a fixed gain
+     from 10 Msps (== the CPU's and the unsharded fused step's, under
+     phase 13's contract), and the (1, 4) planar step through a one-rank
+     NCCL process group (== the local mesh's tables);
+ 16. prints one JSON line of per-kernel numbers, the card line, and last
      {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero. Without a CUDA card, or without the
@@ -99,12 +113,6 @@ import sys
 import tempfile
 import time
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, and f32
-# outside the tensor cores: 67 TFLOP/s counts an FMA as two operations, so
-# the card issues f32 instructions (an add, a compare, a max or an FMA
-# alike) at half that rate, 132 SMs x 128 lanes x the clock
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_INSTR_S = 67e12 / 2
 N_MAIN_BLOCKS = 32
 BATCH = 8
 REPEAT = 100                 # guarded kernel-vs-plain runs per input
@@ -247,41 +255,6 @@ def time_ms(fn, iters=20, flush=None, device_only=True):
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
-
-
-def b1_ops_per_sample(sps: int, half: int) -> int:
-    """f32 instructions B1 needs per owned sample (an add, product,
-    compare, min, max or FMA is one): power 4 (two int8 scalings, a
-    product, an FMA), window fold 7, chip energy sps (sps > 1: sps - 1 adds
-    and the scale), tests 27 (reference level 4, noise level 1, peak 2,
-    pulse minimum 3, threshold and tolerance 4, quiet maximum over 12
-    chips 11 and its tolerance 2), NMS 2*half maxima and 2 compares."""
-    return 4 + 7 + (sps if sps > 1 else 0) + 27 + 2 * half + 2
-
-
-def b1_ops_parent(sps: int, half: int) -> int:
-    """The count this script used until it took instructions: operations,
-    an FMA as two, over the 67 TFLOP/s rate (kept to print the change of
-    yardstick once)."""
-    return 5 + 7 + (sps if sps > 1 else 0) + 28 + 2 * half + 2
-
-
-def b34_ops_per_sample(sps: int, half: int) -> int:
-    """As B1's, with the power of an f32 pair taking 2 (no int8 scaling)."""
-    return b1_ops_per_sample(sps, half) - 2
-
-
-def b5p_ops_per_sample(sps: int) -> int:
-    """B5p's: B1's without the NMS and with 5 quiet chips of 12 (the quiet
-    maximum 4 maxima, not 11)."""
-    return 4 + 7 + (sps if sps > 1 else 0) + 27 - 7
-
-
-def b6_ops_per_sample(sps: int, half: int) -> int:
-    """B6's: B3/B4's, the reference level's FMA form taking one more at
-    sps > 1 (a product and 3 FMAs before the final scale, not an FMA and
-    2 adds)."""
-    return b34_ops_per_sample(sps, half) + (1 if sps > 1 else 0)
 
 
 VARIANTS = {"B1": {"ordered": False}, "B5o": {"ordered": True},
@@ -1580,6 +1553,282 @@ def phase_cli(cfg, dev, tmp, smi, uc8, c64, chans):
               flush=True)
 
 
+SHARDED_MESH = (2, 4)        # (channels, time shards) of phase 15
+SHARDED_STEPS = 4
+SHARDED_TAIL = 4321          # samples past the last full step
+SHARDED_CHUNK = 3_000_000    # samples per run_stream chunk
+
+
+def sharded_capture(cfg, n_steps, n_time, tail, seed):
+    """Two channels of mixed traffic (~100 msg/s at 15 dB) over n_steps
+    steps of n_time blocks plus `tail` samples, complex64, each with a
+    DF17 frame planted 130 samples before every inner time-shard
+    boundary and 100 before every step boundary (its body crosses the
+    boundary) where no traffic frame is within 600 samples. Returns
+    ((2, N) complex64, truth of both channels)."""
+    import numpy as np
+    from airmodes_torch.testing import encoder
+    blk = cfg.block_size
+    step = n_time * blk
+    total = n_steps * step + tail
+    n_msgs = max(int(total / cfg.channel_rate * 100.0), 8)
+    out = np.empty((2, total), np.complex64)
+    truth = []
+    for c in range(2):
+        iq, tr = encoder.make_capture(
+            encoder.random_mixed_frames(n_msgs, seed=seed + c),
+            rate=cfg.channel_rate, snr_db=15.0, spacing=total // n_msgs,
+            start=1024 + 4999 * c, seed=seed + c, total_samples=total)
+        rng = np.random.default_rng(seed + 10 + c)
+        amp = tr[0].amplitude
+        busy = np.array([t.sample_index for t in tr])
+        bounds = range(blk, total, blk)
+        plants = encoder.random_df17_frames(len(bounds), seed=seed + 20 + c)
+        for b, (frame, nbits) in zip(bounds, plants):
+            pos = b - (100 if b % step == 0 else 130)
+            if np.abs(busy - pos).min() < 600:
+                continue
+            pulse = np.repeat(encoder.frame_to_chips(frame, nbits), cfg.sps)
+            phase = np.exp(2j * np.pi * rng.random())
+            iq[pos: pos + pulse.size] += (amp * phase * pulse).astype(
+                np.complex64)
+            tr.append(encoder.GroundTruth(frame, nbits, pos, amp, 15.0,
+                                          cfg.sps))
+        out[c] = iq
+        truth += tr
+    return out, truth
+
+
+def _stream_messages(pipe, x, chunk):
+    """run_stream over x in chunks of `chunk` samples: the steps' message
+    lists."""
+    return list(pipe.run_stream(x[:, i: i + chunk]
+                                for i in range(0, x.shape[1], chunk)))
+
+
+def phase_sharded(cfg, dev, tmp, smi):
+    """The sharded path on the card (phase 15). Returns the B1 and B2
+    launches of its PodPipeline run."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from airmodes_torch.dist import sharded
+    from airmodes_torch.dist.multihost import PodPipeline
+    from airmodes_torch.dsp import host
+    from airmodes_torch.dsp.pipeline import unpack_table
+    from airmodes_torch.kernels import preamble as K
+    from airmodes_torch.resample import fused as RF
+    from airmodes_torch.resample.polyphase import rational_rate
+
+    n_ch, n_t = SHARDED_MESH
+    t0 = time.perf_counter()
+    x, truth = sharded_capture(cfg, SHARDED_STEPS, n_t, SHARDED_TAIL, 31)
+    n_plant = sum(1 for t in truth if t.sample_index % cfg.block_size
+                  in (cfg.block_size - 100, cfg.block_size - 130))
+    print(f"sharded: 2 channels of {x.shape[1]} samples ({SHARDED_STEPS} "
+          f"steps of {n_t} x {cfg.block_size} + {SHARDED_TAIL}), "
+          f"{len(truth)} frames ({n_plant} planted across shard and step "
+          f"boundaries), built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # 1. PodPipeline on a (2, 4) mesh, planar chosen on the card
+    pipe = PodPipeline(cfg, n_channel=n_ch, n_time=n_t, device=dev)
+    if pipe.planar is not True:
+        raise AssertionError("PodPipeline(planar=None) did not choose the "
+                             "planar path on the card")
+    _stream_messages(pipe, x[:, : pipe.samples_per_step], SHARDED_CHUNK)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    steps = _stream_messages(pipe, x, SHARDED_CHUNK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"B1": K.DETECT_CANDS_ROUTES["B1"],
+                "slice_windows": K.LAUNCHES["slice_windows"]}
+    others = {k: v for k, v in K.DETECT_CANDS_ROUTES.items() if k != "B1"}
+    print(f"sharded: launches {dict(K.LAUNCHES)}, routes "
+          f"{dict(K.DETECT_CANDS_ROUTES)} over {len(steps)} steps",
+          flush=True)
+    if launches != {"B1": len(steps), "slice_windows": len(steps)} \
+            or any(others.values()) or K.LAUNCHES["detect_mask"]:
+        raise AssertionError(f"sharded: B1 and B2 must launch once per "
+                             f"step ({len(steps)}), got {launches}")
+    msgs = [m for st in steps for m in st]
+    cpu = PodPipeline(cfg, n_channel=n_ch, n_time=n_t, planar=True,
+                      device="cpu")
+    t1 = time.perf_counter()
+    on_cpu = _stream_messages(cpu, x, SHARDED_CHUNK)
+    if steps != on_cpu:
+        raise AssertionError(f"sharded: the card's messages != the CPU's "
+                             f"({len(msgs)} vs "
+                             f"{sum(len(s) for s in on_cpu)})")
+    print(f"sharded: all {len(msgs)} messages of {len(steps)} steps on the "
+          f"card == on the CPU ({time.perf_counter() - t1:.1f} s)",
+          flush=True)
+
+    # the same samples as unsharded blocks: frame_planar at the pipeline's
+    # gain, batches of 8 through the planar step
+    n_blocks = len(steps) * n_t
+    rows = [frame_planar(x[c], cfg, n_blocks, pipe.gain) for c in range(2)]
+    xi = np.concatenate([r[0] for r in rows])
+    xq = np.concatenate([r[1] for r in rows])
+    flat = []
+    for lo in range(0, len(xi), BATCH):
+        packed = K.demod_batch_packed_planar(
+            xi[lo: lo + BATCH], xq[lo: lo + BATCH], cfg,
+            device=dev).cpu().numpy()
+        for j, row in enumerate(packed):
+            k = (lo + j) % n_blocks
+            flat += host.table_to_messages(
+                unpack_table(row), k * cfg.block_size, cfg.channel_rate,
+                full_scale=pipe.gain / 127.0)
+    key = lambda m: (float(m.split()[5]), m)  # noqa: E731
+    if sorted(msgs, key=key) != sorted(flat, key=key):
+        raise AssertionError(f"sharded: {len(msgs)} messages != the "
+                             f"unsharded planar step's {len(flat)}")
+    print(f"sharded: == the unsharded planar step over the same "
+          f"{2 * n_blocks} blocks", flush=True)
+    _decode_check(msgs, truth, "sharded")
+    got = {m.split()[1] for m in msgs}
+    lost = [t.hex for t in truth if t.hex not in got
+            and t.sample_index % cfg.block_size >= cfg.block_size - 130]
+    if lost:
+        raise AssertionError(f"sharded: boundary frames lost: {lost}")
+
+    # the step alone, and the unsharded 8-block step, on step 2's input
+    S = pipe.samples_per_step
+    qs = [host.quantize_i8_np(x[:, a: a + S].real, pipe.gain) for a in
+          (0, S, 2 * S)]
+    qq = [host.quantize_i8_np(x[:, a: a + S].imag, pipe.gain) for a in
+          (0, S, 2 * S)]
+    dv = [sharded.shard_input_planar(i, q, pipe.mesh) for i, q in
+          zip(qs, qq)]
+    args = (dv[0][0], dv[0][1], dv[1][0], dv[1][1], dv[2][0], dv[2][1])
+    step_ms = time_ms(lambda: pipe.step3_fn(*args), device_only=False)
+    bi = torch.from_numpy(np.concatenate(
+        [xi[c * n_blocks + n_t: c * n_blocks + 2 * n_t] for c in range(2)]
+    )).to(dev)
+    bq = torch.from_numpy(np.concatenate(
+        [xq[c * n_blocks + n_t: c * n_blocks + 2 * n_t] for c in range(2)]
+    )).to(dev)
+    flat_ms = time_ms(lambda: K.demod_batch_packed_planar(bi, bq, cfg,
+                                                          device=dev),
+                      device_only=False)
+    print("sharded: the profile of the sharded step", flush=True)
+    rows = [profile_step(lambda: pipe.step3_fn(*args), smi)]
+    print("sharded: the profile of the unsharded 8-block step", flush=True)
+    rows.append(profile_step(
+        lambda: K.demod_batch_packed_planar(bi, bq, cfg, device=dev), smi))
+    if all(rows):
+        busy = [sum(r[0] for r in rs) / 5 for rs in rows]
+        print(f"sharded: device busy {busy[0]:.1f} us per sharded step, "
+              f"{busy[1]:.1f} us per unsharded step [{smi}]", flush=True)
+    n_s = n_ch * S
+    print(f"sharded: step {step_ms:.4f} ms ({n_s / step_ms / 1e3:.1f} Msps) "
+          f"against the unsharded 8-block step {flat_ms:.4f} ms, both as "
+          f"the host sees them; end to end "
+          f"{2 * x.shape[1] / wall / 1e6:.1f} Msps over {len(steps)} steps "
+          f"({wall:.3f} s) [{smi}]", flush=True)
+
+    # 2. the f32 path over the first two steps: the CPU's messages
+    two = x[:, : 2 * S]
+    f32 = PodPipeline(cfg, n_channel=n_ch, n_time=n_t, planar=False,
+                      device=dev)
+    t0 = time.perf_counter()
+    f32_msgs = _stream_messages(f32, two, SHARDED_CHUNK)
+    torch.cuda.synchronize()
+    f32_wall = time.perf_counter() - t0
+    f32_cpu = _stream_messages(PodPipeline(cfg, n_channel=n_ch, n_time=n_t,
+                                           planar=False, device="cpu"),
+                               two, SHARDED_CHUNK)
+    if f32_msgs != f32_cpu:
+        raise AssertionError("sharded f32: the card's messages != the CPU's")
+    flat32 = [m for st in f32_msgs for m in st]
+    early = [t for t in truth if t.sample_index < 2 * S - 400]
+    _decode_check(flat32, early, "sharded f32")
+    print(f"sharded f32: {len(flat32)} messages of 2 steps on the card == "
+          f"on the CPU; end to end {2 * two.shape[1] / f32_wall / 1e6:.1f} "
+          f"Msps [{smi}]", flush=True)
+
+    # 3. the fused resample -> int8 -> planar step on a (1, 4) mesh
+    p, q = rational_rate(RESAMPLED_RATE, cfg.channel_rate)
+    path = os.path.join(tmp, "sharded_raw.c64")
+    rs_truth = write_raw_capture(cfg, path, 4, RESAMPLED_RATE, 33)
+    raw = np.fromfile(path, np.complex64)
+    iqp = np.stack([raw.real, raw.imag]).astype(np.float32)[None]
+    gain = np.float32(120.0)
+    mesh14 = sharded.make_mesh(1, 4, device=dev)
+    fn = sharded.make_sharded_resample_demod(mesh14, cfg, p, q, planar=True)
+    K.reset_launches()
+    table = fn(sharded.shard_input_resample_planar(iqp, mesh14), gain)
+    rs_msgs = _table_messages(table, cfg, float(gain) / 127.0)
+    if K.DETECT_CANDS_ROUTES["B1"] != 1 or K.LAUNCHES["slice_windows"] != 1:
+        raise AssertionError("sharded resample: B1 and B2 must launch once")
+    cpu14 = sharded.make_mesh(1, 4, device="cpu")
+    rs_cpu = _table_messages(sharded.make_sharded_resample_demod(
+        cpu14, cfg, p, q, planar=True)(
+        sharded.shard_input_resample_planar(iqp, cpu14), gain), cfg,
+        float(gain) / 127.0)
+    worst = _same_messages(rs_msgs, rs_cpu, "sharded resample")
+    rl, rb, rr, _ = RF.raw_geometry(cfg, p, q)
+    padded = np.concatenate([np.zeros((1, 2, rl), np.float32), iqp,
+                             np.zeros((1, 2, rr), np.float32)], axis=2)
+    wins = np.concatenate([padded[:, :, t * rb: t * rb + rl + rb + rr]
+                           for t in range(4)])
+    packed, _ = RF.resample_demod_packed_planar(wins, gain, cfg, p, q,
+                                                device=dev)
+    flat_rs = []
+    for t, row in enumerate(packed.cpu().numpy()):
+        flat_rs += host.table_to_messages(
+            unpack_table(row), t * cfg.block_size, cfg.channel_rate,
+            full_scale=float(gain) / 127.0)
+    worst = max(worst, _same_messages(rs_msgs, sorted(flat_rs, key=key),
+                                      "sharded resample vs unsharded"))
+    _decode_check(rs_msgs, rs_truth, "sharded resample")
+    print(f"sharded resample: (1, 4) mesh, p/q = {p}/{q}, {len(rs_msgs)} "
+          f"messages == the CPU's and the unsharded fused step's "
+          f"(ref_dbfs within {worst:.3f} dB)", flush=True)
+
+    # 4. the (1, 4) planar step through a one-rank NCCL group
+    xi4 = host.quantize_i8_np(x[:1, :S].real, pipe.gain)
+    xq4 = host.quantize_i8_np(x[:1, :S].imag, pipe.gain)
+    local = sharded.make_sharded_demod_planar(mesh14, cfg)(
+        *sharded.shard_input_planar(xi4, xq4, mesh14))
+    # one process on one card: NCCL's bootstrap may use the loopback
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    try:
+        nccl = sharded.make_mesh(1, 4, group=dist.group.WORLD, device=dev)
+        got = sharded.make_sharded_demod_planar(nccl, cfg)(
+            *sharded.shard_input_planar(xi4, xq4, nccl))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    for name, a, b in zip(got._fields, got, local):
+        if not torch.equal(a, b):
+            raise AssertionError(f"one-rank NCCL mesh != local mesh: {name}")
+    print(f"sharded: the (1, 4) step through a one-rank NCCL group == the "
+          f"local mesh ({int((local.index >= 0).sum())} detections)",
+          flush=True)
+    return launches
+
+
+def _table_messages(table, cfg, full_scale):
+    """Messages of a sharded (C, T) table (indices global in the step),
+    sorted by time."""
+    from airmodes_torch.dsp import host
+    from airmodes_torch.dsp.pipeline import DetectionTable
+    arr = [f.cpu().numpy() for f in table]
+    msgs = []
+    for c in range(arr[0].shape[0]):
+        for t in range(arr[0].shape[1]):
+            msgs += host.table_to_messages(
+                DetectionTable(*(a[c, t] for a in arr)), 0,
+                cfg.channel_rate, full_scale=full_scale)
+    return sorted(msgs, key=lambda m: (float(m.split()[5]), m))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1589,6 +1838,10 @@ def main() -> int:
     from airmodes_torch.config import DspConfig
     from airmodes_torch.kernels import _ext
     from airmodes_torch.kernels import preamble as K
+    from airmodes_torch.kernels.opcount import (
+        B2_OPS_PER_WINDOW_SAMPLE, PEAK_F32_INSTR_S, b1_ops_parent,
+        b1_ops_per_sample, b34_ops_per_sample, b5p_ops_per_sample,
+        b6_ops_per_sample, bound)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1728,11 +1981,7 @@ def main() -> int:
         phase_cli(cfg, dev, tmp, smi, os.path.join(tmp, "main.uc8"),
                   rs_path, [os.path.join(tmp, "ch0.uc8"),
                             os.path.join(tmp, "ch1.uc8")])
-
-    def bound(n_bytes, n_ops):
-        mem_s, ops_s = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_INSTR_S
-        return (max(mem_s, ops_s) * 1e3,
-                "bytes" if mem_s >= ops_s else "operations")
+        sh_launches = phase_sharded(cfg, dev, tmp, smi)
 
     half = cfg.nms_chips * cfg.sps
     b1_ms, b1_plain, b1_bytes, b1_samples = b1_t
@@ -1746,26 +1995,37 @@ def main() -> int:
           f"{b1_samples * b1_ops_per_sample(cfg.sps, half) / PEAK_F32_INSTR_S * 1e3:.5f}"
           f" ms ({b1_ops_per_sample(cfg.sps, half)} f32 instructions per "
           f"sample over {PEAK_F32_INSTR_S / 1e12:.1f} T/s)", flush=True)
+    # B1's and B2's launches on each path that runs them; "launches" is
+    # the int8 main path's
+    by_path = {k: {"int8 main path": launches[k],
+                   "run_native_channels": chan_launches[k],
+                   "run_resampled_fused": rs_launches[k],
+                   "run_resampled_fused_channels": rs_chan_launches[k],
+                   "PodPipeline (2, 4) sharded": sh_launches[k]}
+               for k in ("B1", "slice_windows")}
     kernels = [
         {"name": "detect_cands (B1)", "route": "cuda",
          "source": "airmodes_torch/kernels/csrc/detect_cands.cu",
          "replaces": "airmodes/kernels/preamble_pallas.py:1096",
          "launches": launches["B1"], "max_abs_err": b1_err,
          "ms": b1_ms, "plain_ms": b1_plain, "bound_ms": b1_bound,
-         "bound_by": b1_by, "library_ms": None},
+         "bound_by": b1_by, "library_ms": None,
+         "launches_by_path": by_path["B1"]},
     ]
     # B2 at the demod paths' width and at the reference's; both entries
     # count the kernel's launches on the int8 path, which runs the first
     for width in ("main", "reference"):
         ms, plain_ms, n_in, n_out = b2_t[width]
-        bms, by = bound(2 * n_in + 4 * n_out, 5 * n_in)
+        bms, by = bound(2 * n_in + 4 * n_out,
+                        B2_OPS_PER_WINDOW_SAMPLE * n_in)
         kernels.append(
             {"name": f"slice_windows (B2, {width} width)", "route": "cuda",
              "source": "airmodes_torch/kernels/csrc/slice_windows.cu",
              "replaces": "airmodes/kernels/preamble_pallas.py:1386",
              "launches": launches["slice_windows"], "max_abs_err": b2_err,
              "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-             "bound_by": by, "library_ms": b2_t["library"]})
+             "bound_by": by, "library_ms": b2_t["library"],
+             "launches_by_path": by_path["slice_windows"]})
     for C, kid, line in ((1, "B3", 303), (BATCH, "B4", 517)):
         ms, plain_ms, n_bytes, samples = b34_t[C]
         bms, by = bound(n_bytes, samples * b34_ops_per_sample(cfg.sps, half))
@@ -1816,6 +2076,9 @@ def main() -> int:
           f"{rs_launches['slice_windows']} times on run_resampled_fused, "
           f"{rs_chan_launches['B1']} and {rs_chan_launches['slice_windows']} "
           f"on run_resampled_fused_channels", flush=True)
+    print(f"sharded: B1 launched {sh_launches['B1']} times and B2 "
+          f"{sh_launches['slice_windows']} times on PodPipeline.run_stream "
+          f"over a {SHARDED_MESH} mesh (once per step)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

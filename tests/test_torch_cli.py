@@ -2,7 +2,11 @@
 `--device cpu`) against the reference's `airmodes.apps.modes_rx.main` on the
 same captures and arguments, and the Python sources it uses
 (`io.sources`: `udp_source`, `synthetic_source`, `open_source`, the
-framers). Twins of the modes_rx tests of tests/test_cli.py.
+framers). Twins of the modes_rx tests of tests/test_cli.py, with `--pub`
+read by a zmq subscriber; and of the `modes_gui` and `modes_mlat` cases
+of tests/test_cli.py, tests/test_mlat_net.py and tests/test_netclient.py
+(`airmodes_torch.apps.modes_gui`, `modes_mlat` against the reference's:
+exit codes, messages, printed rows and solutions).
 
 Both CLIs run in-process with their module clock fixed (`time.time()` =
 1.7e9), so the epoch of every message, and with it the console lines, the
@@ -387,33 +391,44 @@ def test_cli_validation_exits_match_reference(argv, tmp_path):
                  db=False)[0] == 2
 
 
-def test_validation_failure_closes_registered_plugins(capture, tmp_path):
+def test_validation_failure_closes_registered_plugins(capture, tmp_path,
+                                                     monkeypatch):
     """Every validation exit after the plugins are registered closes them
     (the kml rewrite thread outlives main() otherwise): the reference's
-    four cases, the two exits of _run_multichannel that the reference
-    leaks, and --pub, which the port refuses."""
+    four cases and the two exits of _run_multichannel that the reference
+    leaks; with --pub the zmq relay is closed too."""
+    from airmodes_torch.io import relay
     path, _, d, _ = capture
     db, kml = str(tmp_path / "leak.db"), str(tmp_path / "leak.kml")
     plug = ["-d", db, "--kml", kml, "--stats-interval", "0"]
     cases = [
-        (["-s", "beast://127.0.0.1:1", "-s", path] + plug, True),
-        (["-s", "beast://::1"] + plug, True),
-        (["-s", path, "--file-format", "beast", "-s", path] + plug, True),
-        (["-s", path, "--kml", kml, "--stats-interval", "0"], True),
-        (["-s", path, "-s", "udp"] + plug, True),
-        (["-s", path, "-s", "synthetic", "-r", "4e6"] + plug, True),
-        (["-s", path, "--pub", "tcp://127.0.0.1:5999"] + plug, False),
+        ["-s", "beast://127.0.0.1:1", "-s", path] + plug,
+        ["-s", "beast://::1"] + plug,
+        ["-s", path, "--file-format", "beast", "-s", path] + plug,
+        ["-s", path, "--kml", kml, "--stats-interval", "0"],
+        ["-s", path, "-s", "udp"] + plug,
+        ["-s", path, "-s", "synthetic", "-r", "4e6"] + plug,
     ]
-    for argv, same_as_ref in cases:
-        if same_as_ref:
-            assert _run(ref_rx, argv)[0] == 2, argv
+    relays = []
+    if relay.HAVE_ZMQ:
+        class Spy(relay.zmq_pubsub_iface):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                relays.append(self)
+
+        monkeypatch.setattr(relay, "zmq_pubsub_iface", Spy)
+        cases.append(["-s", "beast://::1", "--pub", "tcp://127.0.0.1:*"]
+                     + plug)
+    for argv in cases:
+        assert _run(ref_rx, argv)[0] == 2, argv
         before = set(threading.enumerate())
         rc, _, err = _run(rx, argv)
         assert rc == 2, argv
         leftover = [t for t in threading.enumerate()
                     if t not in before and t.is_alive()]
         assert not leftover, (argv, leftover)
-    assert "pyzmq" in _run(rx, cases[-1][0])[2]
+    assert len(relays) == relay.HAVE_ZMQ
+    assert all(r._closed.is_set() and r._pub is None for r in relays)
 
 
 def test_cli_without_a_card_is_a_clean_error(capture):
@@ -597,3 +612,488 @@ def test_synthetic_source_matches_reference():
     assert len(got) == len(want) == 3
     for (a, sa), (b, sb) in zip(got, want):
         assert sa == sb and np.array_equal(a, b)
+
+
+# --- --pub, modes_mlat and modes_gui ------------------------------------------
+
+import airmodes.apps.modes_gui as ref_gui  # noqa: E402
+import airmodes.apps.modes_mlat as ref_mlat  # noqa: E402
+import airmodes_torch.apps.modes_gui as gui  # noqa: E402
+import airmodes_torch.apps.modes_mlat as mlat  # noqa: E402
+
+
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _zmq_or_skip():
+    from airmodes_torch.io import relay
+    import airmodes.io.relay as ref_relay
+    assert relay.HAVE_ZMQ == ref_relay.HAVE_ZMQ
+    if not relay.HAVE_ZMQ:
+        pytest.skip("pyzmq is not installed")
+    import zmq
+    return zmq
+
+
+def test_pub_matches_reference(capture, monkeypatch):
+    """--pub: a zmq subscriber receives the same raw lines from the
+    port's CLI as from the reference's, in order. The relay is the real
+    one; the test only holds main until its SUB socket has joined (zmq
+    drops what a PUB sends before then) and holds the close until every
+    line has arrived (the relay closes with linger 0)."""
+    zmq = _zmq_or_skip()
+    import airmodes.io.relay as ref_relay
+    from airmodes_torch.io import relay
+    path = capture[0]
+    runs = []
+    for mod, rel in ((ref_rx, ref_relay), (rx, relay)):
+        addr = f"tcp://127.0.0.1:{_free_port()}"
+        sub = zmq.Context.instance().socket(zmq.SUB)
+        sub.setsockopt(zmq.SUBSCRIBE, b"")
+        sub.setsockopt(zmq.RCVTIMEO, 50)
+        sub.connect(addr)
+        got, joined, stop = [], threading.Event(), threading.Event()
+
+        def receive():
+            while not stop.is_set():
+                try:
+                    topic, msg = sub.recv_multipart()
+                except zmq.Again:
+                    continue
+                if topic == b"probe":
+                    joined.set()
+                else:
+                    got.append((topic.decode(), msg.decode()))
+
+        class Joined(rel.zmq_pubsub_iface):
+            n_sent = 0
+
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                deadline = time.time() + 10
+                while not joined.wait(0.01) and time.time() < deadline:
+                    with self._pub_lock:
+                        self._pub.send_multipart([b"probe", b""])
+
+            def publish(self, topic, msg):
+                Joined.n_sent += 1
+                super().publish(topic, msg)
+
+            def close(self):
+                deadline = time.time() + 10
+                while len(got) < Joined.n_sent and time.time() < deadline:
+                    time.sleep(0.01)
+                super().close()
+
+        monkeypatch.setattr(rel, "zmq_pubsub_iface", Joined)
+        th = threading.Thread(target=receive)
+        th.start()
+        try:
+            rc, _, err = _run(mod, ["-s", path, "--block-size", "65536",
+                                    "-n", "--stats-interval", "0",
+                                    "--pub", addr])
+        finally:
+            stop.set()
+            th.join(timeout=10)
+            sub.close(linger=0)
+        assert rc == 0, err
+        assert joined.is_set() and len(got) == Joined.n_sent
+        runs.append(got)
+    assert runs[1] == runs[0]
+    assert len(runs[0]) >= 10 and {t for t, _ in runs[0]} == {"dl_data"}
+
+
+# modes_mlat: the stations and aircraft of tests/test_mlat_net.py
+C_LIGHT = 299792458.0
+STATIONS = [(47.00, 8.00, 500.0), (47.25, 8.05, 420.0),
+            (46.95, 8.40, 610.0), (47.15, 8.30, 800.0)]
+AIRCRAFT = (47.10, 8.20, 10000.0)
+
+
+def _arrivals(pos, stations, t_emit):
+    from airmodes_torch.decode import mlat as M
+    p = M.llh2ecef(pos)
+    return [t_emit + float(np.linalg.norm(p - M.llh2ecef(s))) / C_LIGHT
+            for s in stations]
+
+
+def _mlat_wire(frame, nbits, ts, synd=0):
+    return (f"{frame >> (nbits - 5)} {frame:0{nbits // 4}x} {synd:06x} 0 "
+            f"-20.00 {ts:.9f}")
+
+
+def _mlat_run(mod, argv):
+    out, err = io.StringIO(), io.StringIO()
+    with redirect_stdout(out), redirect_stderr(err):
+        rc = mod.main(argv)
+    return rc, out.getvalue().splitlines(), err.getvalue()
+
+
+def _solutions(lines, hexes):
+    return [ln for ln in lines if ln.startswith("mlat ") and hexes in ln]
+
+
+def _lat_lon(line):
+    return (float(line.split("(")[1].split(",")[0]),
+            float(line.split(",")[1].split(")")[0]))
+
+
+@pytest.mark.parametrize("argv", [
+    ["-S", "47.0,8.0@zmq://x"],                      # missing alt
+    ["-S", "47.0,8.0,500"],                          # missing @URL
+    ["-S", "47.0,8.0,500@beast://h:1"] * 3 + ["--min-stations", "2"],
+    ["-S", "47.0,8.0,500@beast://h:1"] * 2,          # fewer than 3
+    ["-S", "47.0,8.0,500@beast://h", "-S", "47.1,8.0,500@beast://h:1",
+     "-S", "47.0,8.1,500@beast://h:1"],             # bad URL
+])
+def test_mlat_validation_exits_match_reference(argv):
+    """Malformed stations, too few of them and a typo'd feed URL are
+    clean CLI errors (exit 2) with the reference's message."""
+    got = _mlat_run(mlat, argv)
+    want = _mlat_run(ref_mlat, argv)
+    assert got[0] == want[0] == 2
+    assert got[2] == want[2]
+
+
+def test_mlat_app_over_zmq():
+    """Three zmq publishers (modes_rx --pub feeds) -> modes_mlat -> the
+    reference's printed solution, line for line."""
+    zmq = _zmq_or_skip()
+    from airmodes_torch.io.relay import zmq_pubsub_iface
+    from airmodes_torch.testing import encoder as tenc
+    frame = tenc.df17_frame(0x4840D6, tenc.me_airborne_position(
+        AIRCRAFT[2] / 0.3048, AIRCRAFT[0], AIRCRAFT[1], odd=False))
+    other = tenc.df17_frame(0x222222, tenc.me_identification("AGE"))
+    ts = _arrivals(AIRCRAFT, STATIONS[:3], 100.0)
+    lines = []
+    for mod in (ref_mlat, mlat):
+        pubs = [zmq_pubsub_iface(pubaddr="tcp://127.0.0.1:*")
+                for _ in range(3)]
+        addrs = [p._pub.getsockopt(zmq.LAST_ENDPOINT).decode() for p in pubs]
+        argv = [f"-S{STATIONS[i][0]},{STATIONS[i][1]},{STATIONS[i][2]}"
+                f"@{addrs[i]}" for i in range(3)]
+        argv += ["--alt-datum", "ellipsoid", "--max-seconds", "30",
+                 "--max-solutions", "1"]
+        res = []
+        th = threading.Thread(target=lambda: res.append(
+            _mlat_run(mod, argv)))
+        th.start()
+        try:
+            # until the SUB sockets have joined: the three copies, then a
+            # later unrelated frame that ages the window out
+            while th.is_alive():
+                for i in range(3):
+                    pubs[i].publish("dl_data", _mlat_wire(frame, 112, ts[i]))
+                time.sleep(0.1)
+                pubs[0].publish("dl_data", _mlat_wire(other, 112, ts[0] + 1))
+                th.join(timeout=0.3)
+        finally:
+            th.join(timeout=40)
+            for p in pubs:
+                p.close()
+        rc, out, _ = res[0]
+        assert rc == 0
+        lines.append(_solutions(out, "4840d6")[:1])
+    assert lines[1] == lines[0] and lines[0]
+    lat, lon = _lat_lon(lines[0][0])
+    assert abs(lat - AIRCRAFT[0]) < 0.02 and abs(lon - AIRCRAFT[1]) < 0.02
+
+
+def _beast_stations(gps_time):
+    from airmodes_torch.outputs.beast import output_beast
+    return [output_beast(port=0, host="127.0.0.1", gps_time=gps_time)
+            for _ in STATIONS]
+
+
+def _printed(monkeypatch, mod):
+    """The lines `mod` prints to stdout, collected apart from another
+    module's (two mains run at once); stderr prints pass through."""
+    lines = []
+
+    def collect(*a, **k):
+        if "file" in k:
+            print(*a, **k)
+        else:
+            lines.append(" ".join(str(x) for x in a))
+
+    monkeypatch.setattr(mod, "print", collect, raising=False)
+    return lines
+
+
+def test_mlat_over_beastgps_feeds(monkeypatch):
+    """Four GPS-disciplined Beast stations -> modes_mlat solves the
+    aircraft from TDOA, exit code 0, in both packages at once, each with
+    its own stations. Every round stamps fresh arrivals on all four
+    stations, then, after a pause, a later frame that ages the
+    correlation window out, so a round that every connected feed sees
+    solves whenever the connections come up."""
+    from airmodes_torch.testing import encoder as tenc
+    frame = tenc.df17_frame(0x4840D6, tenc.me_identification("MLAT01"))
+    flushf = tenc.df17_frame(0x111111, tenc.me_identification("FLUSH"))
+    stop = threading.Event()
+    runs, threads, srvs = {}, [], []
+    for mod in (ref_mlat, mlat):
+        mine = _beast_stations(gps_time=True)
+        srvs += mine
+
+        def feeder(mine=mine):
+            while not stop.is_set():
+                ts = _arrivals(AIRCRAFT, STATIONS, time.time())
+                for s, srv in enumerate(mine):
+                    srv.output(_mlat_wire(frame, 112, ts[s]))
+                stop.wait(0.3)
+                t2 = time.time()
+                for srv in mine:
+                    srv.output(_mlat_wire(flushf, 112, t2))
+                stop.wait(0.1)
+
+        argv = []
+        for (lat, lon, alt), s in zip(STATIONS, mine):
+            argv += ["-S", f"{lat},{lon},{alt}@beastgps://127.0.0.1:{s.port}"]
+        argv += ["--alt-datum", "ellipsoid", "--max-seconds", "60",
+                 "--max-solutions", "1"]
+        lines = _printed(monkeypatch, mod)
+        threads += [threading.Thread(target=feeder), threading.Thread(
+            target=lambda m=mod, a=argv, ln=lines: runs.__setitem__(
+                m, (m.main(a), ln)))]
+    for t in threads:
+        t.start()
+    try:
+        for t in threads[1::2]:
+            t.join(timeout=90)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+        for s in srvs:
+            s.close()
+    for mod in (ref_mlat, mlat):
+        rc, lines = runs[mod]
+        assert rc == 0
+        sols = _solutions(lines, "4840d6")
+        assert len(sols) == 1, (mod.__name__, lines)
+        assert sols[0].startswith(f"mlat {frame:028x} 4840d6 (")
+        lat, lon = _lat_lon(sols[0])
+        assert abs(lat - AIRCRAFT[0]) < 0.02 and abs(lon - AIRCRAFT[1]) < 0.02
+
+
+def test_mlat_clock_sync_over_plain_beast_feeds():
+    """Free-running receiver counters with different boot epochs (no GPS):
+    --clock-sync trains per-station offsets on DF17 positions, then a DF4
+    target solves near its position, in both packages."""
+    from airmodes_torch.decode.altitude import encode_alt_q
+    from airmodes_torch.testing import encoder as tenc
+    ref_pos = (47.08, 8.12, 10000.0)
+    target = (47.12, 8.28, 9500.0)
+    boot = [0.0, 1234.5, 99.25, 7.75]
+    tgt = tenc.df4_frame(0xABCDEF, encode_alt_q(target[2] / 0.3048))
+    want_hex = f"{tgt:014x}"
+    for mod in (ref_mlat, mlat):
+        srvs = _beast_stations(gps_time=False)
+        stop = threading.Event()
+
+        def feeder():
+            while not stop.is_set():
+                t = time.time()
+                batch = [(tenc.df17_frame(0x4840D6, tenc.me_airborne_position(
+                    ref_pos[2] / 0.3048, ref_pos[0], ref_pos[1], odd=odd)),
+                    112, ref_pos) for odd in (False, True)]
+                batch.append((tgt, 56, target))
+                for j, (f, n, pos) in enumerate(batch):
+                    ts = _arrivals(pos, STATIONS, t + 0.02 * j)
+                    for s, srv in enumerate(srvs):
+                        srv.output(_mlat_wire(f, n, ts[s] + boot[s]))
+                stop.wait(0.2)
+
+        th = threading.Thread(target=feeder)
+        th.start()
+        argv = []
+        for (lat, lon, alt), s in zip(STATIONS, srvs):
+            argv += ["-S", f"{lat},{lon},{alt}@beast://127.0.0.1:{s.port}"]
+        try:
+            rc, out, _ = _mlat_run(mod, argv + [
+                "--alt-datum", "ellipsoid", "--clock-sync", "--max-seconds",
+                "90", "--max-solutions", "3"])
+        finally:
+            stop.set()
+            th.join()
+            for s in srvs:
+                s.close()
+        assert rc == 0, mod.__name__
+        sols = _solutions(out, want_hex)
+        assert sols, (mod.__name__, out)
+        lat, lon = _lat_lon(sols[-1])
+        assert abs(lat - target[0]) < 0.03 and abs(lon - target[1]) < 0.03
+
+
+def test_mlat_http_map():
+    """--http serves the solved positions as aircraft.json."""
+    import json as _json
+    import urllib.request
+    from airmodes_torch import crc
+    from airmodes_torch.decode.altitude import encode_alt_q
+    from airmodes_torch.testing import encoder as tenc
+    target = (47.12, 8.28, 9500.0)
+    tgt = tenc.df4_frame(0xABCDEF, encode_alt_q(target[2] / 0.3048))
+    flush = tenc.df17_frame(0x111111, tenc.me_identification("AGE"))
+    srvs = _beast_stations(gps_time=True)
+    stop = threading.Event()
+
+    def feeder():
+        while not stop.is_set():
+            ts = _arrivals(target, STATIONS, time.time())
+            for s, srv in enumerate(srvs):
+                srv.output(_mlat_wire(tgt, 56, ts[s], crc.crc24(tgt, 56)))
+            stop.wait(0.3)
+            t2 = time.time()
+            for srv in srvs:
+                srv.output(_mlat_wire(flush, 112, t2, crc.crc24(flush, 112)))
+            stop.wait(0.1)
+
+    port = _free_port()
+    argv = []
+    for (lat, lon, alt), s in zip(STATIONS, srvs):
+        argv += ["-S", f"{lat},{lon},{alt}@beastgps://127.0.0.1:{s.port}"]
+    argv += ["--alt-datum", "ellipsoid", "--max-seconds", "15",
+             "--http", str(port)]
+    feed = threading.Thread(target=feeder)
+    feed.start()
+    res = []
+    th = threading.Thread(target=lambda: res.append(_mlat_run(mlat, argv)))
+    th.start()
+    doc, ac = None, []
+    try:
+        deadline = time.time() + 15
+        while time.time() < deadline and not ac:
+            try:
+                doc = _json.load(urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/data/aircraft.json",
+                    timeout=1))
+                ac = [a for a in doc["aircraft"] if a["hex"] == "abcdef"]
+            except OSError:
+                pass
+            time.sleep(0.25)
+    finally:
+        th.join(timeout=20)
+        stop.set()
+        feed.join()
+        for s in srvs:
+            s.close()
+    assert res and res[0][0] == 0
+    assert ac and abs(ac[0]["lat"] - target[0]) < 0.03
+    assert abs(ac[0]["lon"] - target[1]) < 0.03
+
+
+def _gui_run(mod, argv, capsys):
+    """(exit code, the aircraft rows without their last-seen column) of
+    one headless modes_gui run; the port's on the CPU."""
+    if mod is gui:
+        argv = list(argv) + ["--device", "cpu"]
+    capsys.readouterr()
+    rc = mod.main(list(argv) + ["--backend", "curses"])
+    out = capsys.readouterr()
+    rows = [ln.rsplit(" ", 1)[0] for ln in out.out.splitlines()
+            if re.match(r"^[0-9a-f]{6} ", ln)]
+    return rc, rows, out.out + out.err
+
+
+def test_gui_default_synthetic_source(capsys):
+    """No -s: the synthetic source through build_msg_iter; the headless
+    summary prints the reference's aircraft rows."""
+    argv = ["--duration", "60", "--block-size", str(1 << 16),
+            "--max-blocks", "2"]
+    rc, rows, _ = _gui_run(gui, argv, capsys)
+    want = _gui_run(ref_gui, argv, capsys)
+    assert rc == want[0] == 0
+    assert rows == want[1] and rows
+
+
+def test_gui_resampled_file(tmp_path, capsys):
+    """-r 4e6 on a 4 Msps capture frames it at the channel rate after the
+    resampler: the reference's rows."""
+    frames = encoder.random_df17_frames(6, seed=92)
+    iq, truth = encoder.make_capture(frames, rate=4e6, snr_db=25.0,
+                                     spacing=16000, seed=92)
+    path = str(tmp_path / "gcap4m.c64")
+    iq.tofile(path)
+    argv = ["-s", path, "-r", "4e6", "--duration", "60", "--block-size",
+            "65536"]
+    rc, rows, _ = _gui_run(gui, argv, capsys)
+    want = _gui_run(ref_gui, argv, capsys)
+    assert rc == want[0] == 0
+    assert rows == want[1]
+    assert {r.split()[0] for r in rows} == _want(truth)
+
+
+def test_gui_network_source(capsys):
+    """The dashboard rides a remote beast:// feed (no local DSP)."""
+    from airmodes_torch import crc
+    from airmodes_torch.outputs.beast import output_beast
+    frame = encoder.df17_frame(0xABC123, encoder.me_identification("GUINET"))
+    synd = crc.crc24(frame, 112)
+    for mod in (gui, ref_gui):
+        srv = output_beast(port=0, host="127.0.0.1")
+        stop = threading.Event()
+
+        def feeder():
+            while not stop.is_set():
+                srv.output(f"17 {frame:028x} {synd:06x} 0 -20.00 "
+                           f"{time.time():.9f}")
+                stop.wait(0.05)
+
+        t = threading.Thread(target=feeder)
+        t.start()
+        try:
+            rc, rows, text = _gui_run(mod, ["-s", f"beast://127.0.0.1:"
+                                                  f"{srv.port}",
+                                            "--duration", "3.0"], capsys)
+        finally:
+            stop.set()
+            t.join()
+            srv.close()
+        assert rc == 0 and "GUINET" in text, mod.__name__
+
+
+def test_gui_frame_replay(tmp_path, capsys):
+    """Recorded Beast frames replay through the decode stack, no DSP."""
+    from airmodes_torch.outputs.beast import beast_encode
+    frame = encoder.df17_frame(0xABC123, encoder.me_identification("GUIRPL"))
+    p = tmp_path / "rec.beast"
+    p.write_bytes(b"".join(beast_encode(f"{frame:028x}", -20.0, 1.0 + 0.1 * i)
+                           for i in range(5)))
+    argv = ["-s", str(p), "--file-format", "beast", "--duration", "60"]
+    rc, rows, _ = _gui_run(gui, argv, capsys)
+    want = _gui_run(ref_gui, argv, capsys)
+    assert rc == want[0] == 0
+    assert rows == want[1] and rows[0].startswith("abc123 GUIRPL")
+
+
+@pytest.mark.parametrize("argv", [
+    ["-s", "x.c64", "-s", "y.c64"],                 # one source only
+    ["-s", "udp", "--file-format", "beast"],        # replay of a non-file
+    ["-s", "udp", "-r", "4e6"],                     # resample: files only
+    ["-s", "uhd"],                                  # no SDR hardware
+    ["-s", "/no/such/capture.c64"],
+    ["-s", "beast://rx30005"],                      # bad network URLs
+    ["-s", "ftp://rx:1"],
+    ["-l", "47.0"]])                                # bad location
+def test_gui_validation_exits_match_reference(argv, capsys):
+    rc, _, text = _gui_run(gui, argv + ["--duration", "1.0"], capsys)
+    want_rc, _, want_text = _gui_run(ref_gui, argv + ["--duration", "1.0"],
+                                     capsys)
+    assert rc == want_rc == 2
+    assert text == want_text
+
+
+def test_gui_without_a_card_is_a_clean_error(capsys):
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    capsys.readouterr()
+    assert gui.main(["--backend", "curses", "--duration", "1.0"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err

@@ -46,8 +46,40 @@ def test_every_module_is_found():
                  "airmodes_torch.io.relay",
                  "airmodes_torch.io.netclient",
                  "airmodes_torch.utils.profiling",
-                 "airmodes_torch.apps.modes_rx"):
+                 "airmodes_torch.apps.modes_rx",
+                 "airmodes_torch.apps.modes_mlat",
+                 "airmodes_torch.apps.modes_gui",
+                 "airmodes_torch.dist.sharded",
+                 "airmodes_torch.dist.multihost",
+                 "airmodes_torch.testing.golden",
+                 "airmodes_torch.kernels.opcount"):
         assert want in names
+
+
+# the reference's modules whose port has another name
+_RENAMED = {"airmodes.kernels.preamble_pallas": "airmodes_torch.kernels.preamble"}
+
+
+def test_every_reference_module_is_ported():
+    """Each module of `airmodes/` has its counterpart in the port:
+    `kernels/preamble_pallas` is `kernels/preamble` (the CUDA kernels and
+    the paths around them), and `kernels/opcount` is the Hopper count of
+    bytes and f32 instructions per sample (the reference's counts a
+    TPU's vector passes)."""
+    ref = []
+    top = os.path.join(ROOT, "airmodes")
+    for dirpath, _, files in os.walk(top):
+        if "__init__.py" not in files:
+            continue
+        rel = os.path.relpath(dirpath, ROOT).split(os.sep)
+        ref += [".".join(rel if f == "__init__.py" else rel + [f[:-3]])
+                for f in files if f.endswith(".py")]
+    names = set(_modules())
+    missing = [m for m in sorted(ref)
+               if _RENAMED.get(m, "airmodes_torch" + m[len("airmodes"):])
+               not in names]
+    assert missing == []
+    assert len(ref) > 40
 
 
 def test_every_decode_and_output_module_is_ported():
@@ -104,13 +136,47 @@ def _imports_of(path):
             yield node.module or ""
 
 
+# third-party modules the port may import only where their absence is
+# handled: inside a `try` whose handler catches ImportError
+_OPTIONAL = {"zmq", "PyQt5", "PySide6"}
+
+
+def _optional_imports(tree):
+    """Names imported inside a try/except ImportError."""
+    out = set()
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Try):
+            continue
+        catches = {getattr(h.type, "id", None) for h in node.handlers}
+        if not catches & {"ImportError", "ModuleNotFoundError"}:
+            continue
+        for stmt in node.body:
+            for sub in ast.walk(stmt):
+                if isinstance(sub, ast.Import):
+                    out |= {a.name.split(".")[0] for a in sub.names}
+                elif isinstance(sub, ast.ImportFrom) and sub.level == 0:
+                    out.add((sub.module or "").split(".")[0])
+    return out
+
+
 def test_sources_name_no_jax_or_airmodes_import():
+    """The port and chip_smoke import torch, numpy, the standard library
+    and the port; pyzmq (the relay) and Qt (the GUI) only optionally, as
+    the reference does; never JAX or `airmodes`."""
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(PKG):
         paths += [os.path.join(dirpath, f) for f in files
                   if f.endswith(".py")]
+    allowed = set(sys.stdlib_module_names) | {"torch", "numpy",
+                                              "airmodes_torch"}
     for path in paths:
+        with open(path) as f:
+            optional = _optional_imports(ast.parse(f.read(), path))
         for name in _imports_of(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "airmodes"), (path, name)
+            if top in _OPTIONAL:
+                assert top in optional, (path, name)
+            else:
+                assert top in allowed, (path, name)
     assert airmodes_torch.__file__.startswith(PKG)

@@ -364,6 +364,88 @@ def test_local_pubsub_matches_reference():
     assert logs[0] == logs[1] == ["1", "b:2"]
 
 
+def _zmq_pair(relay):
+    """A PUB-only and a SUB-bridged interface of `relay` over loopback."""
+    import zmq
+    pub = relay.zmq_pubsub_iface(pubaddr="tcp://127.0.0.1:*")
+    addr = pub._pub.getsockopt(zmq.LAST_ENDPOINT).decode()
+    return pub, relay.zmq_pubsub_iface(subaddr=addr)
+
+
+def _until(cond, act, timeout=5.0):
+    deadline = time.time() + timeout
+    while not cond() and time.time() < deadline:
+        act()
+        time.sleep(0.05)
+    return cond()
+
+
+@pytest.mark.parametrize("pkg", ["port", "reference"])
+def test_zmq_relay_roundtrip_and_unsubscribe(pkg):
+    """Twin of the reference's zmq relay tests, run on both packages'
+    bridges: a message crosses PUB -> SUB; unsubscribe() releases the
+    publisher-side filter and re-subscribing restores delivery; a
+    PUB-only interface still feeds its local subscribers; publishes after
+    close drop."""
+    import airmodes.io.relay as ref_relay
+    import airmodes_torch.io.relay as relay
+    mod = relay if pkg == "port" else ref_relay
+    assert relay.HAVE_ZMQ == ref_relay.HAVE_ZMQ
+    if not relay.HAVE_ZMQ:
+        pytest.skip("pyzmq is not installed")
+    pub, sub = _zmq_pair(mod)
+    try:
+        got = []
+        cb = got.append
+        sub.subscribe("dl_data", cb)
+        assert _until(lambda: got, lambda: pub.publish("dl_data", DF17_HEX))
+        assert got[0] == DF17_HEX
+        sub.unsubscribe("dl_data", cb)
+        time.sleep(0.3)                  # the bridge applies UNSUBSCRIBE
+        n = len(got)
+        for _ in range(5):
+            pub.publish("dl_data", "gone")
+            time.sleep(0.05)
+        assert len(got) == n
+        sub.subscribe("dl_data", cb)
+        assert _until(lambda: len(got) > n,
+                      lambda: pub.publish("dl_data", "back"))
+        assert got[-1] == "back"
+    finally:
+        sub.close()
+        pub.close()
+    only = mod.zmq_pubsub_iface(pubaddr="tcp://127.0.0.1:*")
+    local = []
+    only.subscribe("dl_data", local.append)
+    only.publish("dl_data", "hello")
+    only.close()
+    only.publish("dl_data", "after close")
+    assert local == ["hello"]
+
+
+def test_zmq_relay_crosses_packages():
+    """The port's PUB feeds the reference's SUB and back: one wire
+    format."""
+    import airmodes.io.relay as ref_relay
+    import airmodes_torch.io.relay as relay
+    if not relay.HAVE_ZMQ:
+        pytest.skip("pyzmq is not installed")
+    import zmq
+    for a, b in ((relay, ref_relay), (ref_relay, relay)):
+        pub = a.zmq_pubsub_iface(pubaddr="tcp://127.0.0.1:*")
+        addr = pub._pub.getsockopt(zmq.LAST_ENDPOINT).decode()
+        sub = b.zmq_pubsub_iface(subaddr=addr)
+        got = []
+        sub.subscribe("dl_data", got.append)
+        try:
+            assert _until(lambda: got,
+                          lambda: pub.publish("dl_data", DF17_HEX))
+            assert got[0] == DF17_HEX
+        finally:
+            sub.close()
+            pub.close()
+
+
 def test_rate_meter_and_trace(tmp_path):
     from airmodes_torch.utils.profiling import RateMeter, trace
     m = RateMeter()
