@@ -50,6 +50,19 @@ SIGNATURES = {
         "detect_mask_launch": [_vp, _vp, _vp, _i, _ll, _ll, _ll, _i, _i, _i,
                                _i, _i, _f, _f, _f, _f, _vp],
     },
+    # the probes (airmodes_torch/probes/)
+    "bw_probe": {
+        "bw_copy_launch": [_vp, _vp, _ll, _vp],
+        "bw_read_launch": [_vp, _vp, _ll, _i, _vp],
+    },
+    "planar_floor": {
+        "planar_floor_launch": [_vp, _vp, _vp, _vp, _i, _ll, _i, _i, _i, _i,
+                                _vp],
+    },
+    "detect_ablate": {
+        "detect_ablate_launch": [_vp, _vp, _vp, _i, _ll, _ll, _ll, _i, _i,
+                                 _i, _i, _i, _f, _f, _f, _f, _vp],
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

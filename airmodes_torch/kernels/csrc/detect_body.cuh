@@ -61,7 +61,10 @@
 //    banks.
 // detect_chunk() returns the keep bits of the thread's run (bit j: owned
 // sample kRun * threadIdx.x + j) and writes the run's reference levels
-// where the caller asks (B3, B4, B6).
+// where the caller asks (B3, B4, B6). The f32 kernels (detect_mask.cu, and
+// probe P4's cuts of B4 in detect_ablate.cu) also share their parameters,
+// their staging of I/Q pairs, their mask stores and their launch (last in
+// this file).
 
 #pragma once
 
@@ -397,6 +400,89 @@ __device__ inline uint32_t detect_chunk(const Smem& s, const Rule& r,
     }
   }
   return keep;
+}
+
+// --- the f32 I/Q kernels: B3, B4 and B6 (detect_mask.cu) and probe P4 ------
+// (detect_ablate.cu) stage interleaved f32 pairs and write a mask and
+// reference levels.
+
+struct PairParams {
+  const float2* iq;    // (C, L) interleaved I/Q pairs
+  int32_t* mask;       // (C, N)
+  float* ref;          // (C, N)
+  long long L;         // pairs per channel row
+  long long valid;     // pairs of each row that are read; the rest are 0
+  long long n;         // owned samples per block
+  int nchunk;          // chunks per block (ceil(n / kChunk))
+  int vec;             // rows 16-byte aligned: load two pairs at once
+  Rule rule;
+};
+
+inline PairParams pair_params(const void* iq, void* mask, void* ref,
+                              long long L, long long valid, long long n,
+                              int nchunk, const Rule& rule) {
+  PairParams p;
+  p.iq = static_cast<const float2*>(iq);
+  p.mask = static_cast<int32_t*>(mask);
+  p.ref = static_cast<float*>(ref);
+  p.L = L;
+  p.valid = valid;
+  p.n = n;
+  p.nchunk = nchunk;
+  p.vec = reinterpret_cast<uintptr_t>(iq) % 16 == 0 && L % 2 == 0;
+  p.rule = rule;
+  return p;
+}
+
+// Stages the power m = fma(xi, xi, xq*xq) of the pairs of row `iq` at
+// block positions d0 + u, u in [0, staged_len), in s.m[sk(u)], or 0 at or
+// past p.valid, loading two pairs per step (one float4 where p.vec).
+// Returns whether this thread met a NaN, an Inf or a power above
+// kFinitePower; the caller synchronises.
+__device__ __forceinline__ int stage_pairs(const Smem& s, const float2* iq,
+                                           long long d0,
+                                           const PairParams& p) {
+  const int len = staged_len(p.rule);
+  int wild = 0;
+  for (int q = threadIdx.x; q < len / 2; q += kThreads) {
+    const long long x = d0 + 2LL * q;
+    float2 a = make_float2(0.f, 0.f), b = make_float2(0.f, 0.f);
+    if (p.vec && x + 1 < p.valid) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(iq + x));
+      a = make_float2(v.x, v.y);
+      b = make_float2(v.z, v.w);
+    } else {
+      if (x < p.valid) a = iq[x];
+      if (x + 1 < p.valid) b = iq[x + 1];
+    }
+    const float pa = __fmaf_rn(a.x, a.x, __fmul_rn(a.y, a.y));
+    const float pb = __fmaf_rn(b.x, b.x, __fmul_rn(b.y, b.y));
+    wild |= !(pa <= kFinitePower) || !(pb <= kFinitePower);
+    s.m[sk(2 * q)] = pa;
+    s.m[sk(2 * q + 1)] = pb;
+  }
+  return wild;
+}
+
+// Stores the bits of a thread's run as kRun int32 0/1 at out (16-byte
+// aligned), bit j at out[j].
+__device__ __forceinline__ void store_bits(int32_t* out, uint32_t bits) {
+  int4* o = reinterpret_cast<int4*>(out);
+#pragma unroll
+  for (int j = 0; j < kRun / 4; ++j)
+    o[j] = make_int4((bits >> (4 * j)) & 1, (bits >> (4 * j + 1)) & 1,
+                     (bits >> (4 * j + 2)) & 1, (bits >> (4 * j + 3)) & 1);
+}
+
+// Launches kern over nblk chunks on stream s with the rule's shared memory.
+inline cudaError_t launch_pairs(void (*kern)(PairParams), const PairParams& p,
+                                int nblk, cudaStream_t s) {
+  const int smem = smem_bytes(p.rule);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<nblk, kThreads, smem, s>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace detect

@@ -55,18 +55,7 @@ namespace {
 using detect::kChunk;
 using detect::kRun;
 using detect::kThreads;
-
-struct Params {
-  const float2* iq;    // (C, L) interleaved I/Q pairs
-  int32_t* mask;       // (C, N)
-  float* ref;          // (C, N)
-  long long L;         // pairs per channel row
-  long long valid;     // pairs of each row that are read; the rest are 0
-  long long n;         // owned samples per block
-  int nchunk;          // chunks per block (ceil(n / kChunk))
-  int vec;             // rows 16-byte aligned: load two pairs at once
-  detect::Rule rule;
-};
+using Params = detect::PairParams;
 
 // The sps-1 form holds its powers in registers; capped at 64 a thread, four
 // CTAs share an SM, so one's loads and stores overlap another's rule.
@@ -75,32 +64,12 @@ __global__ void __launch_bounds__(kThreads, kFast ? 4 : 1)
 detect_mask_kernel(Params p) {
   extern __shared__ float smem[];
   const detect::Smem s = detect::carve(smem, p.rule);
-  const int len = detect::staged_len(p.rule);
 
   const int k = blockIdx.x % p.nchunk;
   const int c = blockIdx.x / p.nchunk;
   // staged index u <-> block position x = d0 + u; owned d = d0 + u - 256
   const long long d0 = (long long)k * kChunk;
-  const float2* iq = p.iq + (long long)c * p.L;
-
-  int wild = 0;  // a NaN, an Inf or a power above kFinitePower
-  for (int q = threadIdx.x; q < len / 2; q += kThreads) {
-    const long long x = d0 + 2LL * q;
-    float2 a = make_float2(0.f, 0.f), b = make_float2(0.f, 0.f);
-    if (p.vec && x + 1 < p.valid) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(iq + x));
-      a = make_float2(v.x, v.y);
-      b = make_float2(v.z, v.w);
-    } else {
-      if (x < p.valid) a = iq[x];
-      if (x + 1 < p.valid) b = iq[x + 1];
-    }
-    const float pa = __fmaf_rn(a.x, a.x, __fmul_rn(a.y, a.y));
-    const float pb = __fmaf_rn(b.x, b.x, __fmul_rn(b.y, b.y));
-    wild |= !(pa <= detect::kFinitePower) || !(pb <= detect::kFinitePower);
-    s.m[detect::sk(2 * q)] = pa;
-    s.m[detect::sk(2 * q + 1)] = pb;
-  }
+  const int wild = detect::stage_pairs(s, p.iq + (long long)c * p.L, d0, p);
   const long long own = p.n - d0;  // owned samples of this chunk that exist
   const bool mine = (long long)kRun * threadIdx.x < own;
   const long long at = (long long)c * p.n + d0 + kRun * threadIdx.x;
@@ -110,24 +79,12 @@ detect_mask_kernel(Params p) {
       __syncthreads_or(wild)
           ? detect::detect_chunk<false, kChain, true, kFast>(s, p.rule, ref)
           : detect::detect_chunk<false, kChain, false, kFast>(s, p.rule, ref);
-  if (mine) {
-    int4* out = reinterpret_cast<int4*>(p.mask + at);
-#pragma unroll
-    for (int j = 0; j < kRun / 4; ++j)
-      out[j] = make_int4((keep >> (4 * j)) & 1, (keep >> (4 * j + 1)) & 1,
-                         (keep >> (4 * j + 2)) & 1, (keep >> (4 * j + 3)) & 1);
-  }
+  if (mine) detect::store_bits(p.mask + at, keep);
 }
 
 template <bool kChain, bool kFast>
 cudaError_t launch(const Params& p, int nblk, cudaStream_t s) {
-  const int smem = detect::smem_bytes(p.rule);
-  cudaError_t err = cudaFuncSetAttribute(
-      detect_mask_kernel<kChain, kFast>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  detect_mask_kernel<kChain, kFast><<<nblk, kThreads, smem, s>>>(p);
-  return cudaGetLastError();
+  return detect::launch_pairs(detect_mask_kernel<kChain, kFast>, p, nblk, s);
 }
 
 }  // namespace
@@ -146,16 +103,9 @@ int detect_mask_launch(const void* iq, void* mask, void* ref, int channels,
       reinterpret_cast<uintptr_t>(mask) % 16 ||
       reinterpret_cast<uintptr_t>(ref) % 16)
     return (int)cudaErrorInvalidValue;
-  Params p;
-  p.iq = static_cast<const float2*>(iq);
-  p.mask = static_cast<int32_t*>(mask);
-  p.ref = static_cast<float*>(ref);
-  p.L = L;
-  p.valid = valid;
-  p.n = n;
-  p.nchunk = nchunk;
-  p.vec = reinterpret_cast<uintptr_t>(iq) % 16 == 0 && L % 2 == 0;
-  p.rule = detect::Rule{sps, half, rhalo, thresh, ptol, qtol, inv_sps};
+  const Params p = detect::pair_params(
+      iq, mask, ref, L, valid, n, nchunk,
+      detect::Rule{sps, half, rhalo, thresh, ptol, qtol, inv_sps});
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nblk = channels * nchunk;
   // at sps 1 the two reference-level forms are one

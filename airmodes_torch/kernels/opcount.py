@@ -68,3 +68,37 @@ def b6_ops_per_sample(sps: int, half: int) -> int:
     sps > 1 (a product and 3 FMAs before the final scale, not an FMA and
     2 adds)."""
     return b34_ops_per_sample(sps, half) + (1 if sps > 1 else 0)
+
+
+# --- the probes (airmodes_torch/probes/) -------------------------------------
+
+def copy_probe_cost(rows: int, lanes: int = 128) -> Tuple[int, int]:
+    """(bytes, f32 instructions) of P1, y = x + 1 over (rows, lanes) f32:
+    x read and y written once, one add per element."""
+    return 2 * rows * lanes * 4, rows * lanes
+
+
+def read_probe_cost(rows: int, lanes: int = 128, wrows: int = 144,
+                    out_rows: int = 8) -> Tuple[int, int]:
+    """(bytes, f32 instructions) of P2 and P3: the rows // wrows windows
+    read once (the last rows % wrows rows are not read), out_rows rows
+    written per window, wrows - 1 adds per column of a window."""
+    steps = rows // wrows
+    return (steps * (wrows + out_rows) * lanes * 4,
+            steps * (wrows - 1) * lanes)
+
+
+def floor_probe_bytes(channels: int, planar_len: int, tiles: int,
+                      nchunk: int, cand_rows: int = 8) -> int:
+    """Bytes of P5, B1's loads with no rule: the planar int8 I and Q rows
+    read once, each tile's (cand_rows, 128) int32 block and each chunk's
+    one-word OR written. It does no f32 arithmetic."""
+    return (2 * channels * planar_len
+            + channels * tiles * (cand_rows * 128 + nchunk) * 4)
+
+
+def ablate_probe_instr(samples: int, stages: int, sps: int,
+                       half: int) -> int:
+    """f32 instructions charged to P4's cut after `stages`: B4's count at
+    stage 5 (the whole kernel); the cuts before count bytes only."""
+    return samples * b34_ops_per_sample(sps, half) if stages >= 5 else 0

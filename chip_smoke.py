@@ -95,7 +95,14 @@ process per source, all at once), then:
      from 10 Msps (== the CPU's and the unsharded fused step's, under
      phase 13's contract), and the (1, 4) planar step through a one-rank
      NCCL process group (== the local mesh's tables);
- 16. prints one JSON line of per-kernel numbers, the card line, and last
+ 16. runs the probes (`airmodes_torch.probes`) at their TPU scripts' sizes:
+     P1-P3 (copy and bulk-copy reads over 1 GiB of f32), P4 (kernel B4
+     cut after each stage of its rule, C = 16 blocks of 2^22) and P5 (the
+     planar path's load floor, C = 64 blocks of 2^22), each launched once
+     with its count at 0 and held exactly against its plain version, P4's
+     stage 5 also against B4; then each probe's readings (the planar
+     stage split among them), failing any rate above 105% of 3.35 TB/s;
+ 17. prints one JSON line of per-kernel numbers, the card line, and last
      {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero. Without a CUDA card, or without the
@@ -108,7 +115,6 @@ from __future__ import annotations
 import itertools
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -118,14 +124,6 @@ BATCH = 8
 REPEAT = 100                 # guarded kernel-vs-plain runs per input
 CANARY = -0x21524111         # 0xDEADBEEF: no count, index or power has it
 GUARD = 4096                 # int32 guard elements on each side of a buffer
-
-
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 # --- captures ----------------------------------------------------------------
@@ -230,31 +228,17 @@ def write_capture(cfg, path, n_blocks, seed=1, fmt="uc8"):
 # --- timing ------------------------------------------------------------------
 
 def time_ms(fn, iters=20, flush=None, device_only=True):
-    """Median milliseconds of fn() on the card by CUDA events, each run
-    after a write that evicts the L2 cache (the batch arrives from the
-    host), after three untimed runs. device_only: the card first spins ~2
-    ms while the host enqueues the events and fn's launches, so the time is
-    the card's alone and not the host's launch overhead; False times the
-    step as a caller sees it. The median keeps a stalled run (a mean of
-    the first kernel timed in a process moved by a third between runs)
-    out of it."""
-    import statistics
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
-    for s, e in zip(starts, ends):
-        if flush is not None:
-            flush.zero_()
-        if device_only:
-            torch.cuda._sleep(4_000_000)
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+    """airmodes_torch.probes.time_ms, the one timing harness of the port
+    (kernel_times.py reaches it through this module)."""
+    from airmodes_torch.probes import time_ms as timed
+    return timed(fn, iters=iters, flush=flush, device_only=device_only)
+
+
+def smi_line() -> str:
+    """airmodes_torch.probes.smi_line: the card's name and power limit
+    (kernel_times.py reaches it through this module)."""
+    from airmodes_torch.probes import smi_line as line
+    return line()
 
 
 VARIANTS = {"B1": {"ordered": False}, "B5o": {"ordered": True},
@@ -1814,6 +1798,202 @@ def phase_sharded(cfg, dev, tmp, smi):
     return launches
 
 
+def _rate_ok(what, nbytes, ms, smi):
+    """Fail a reading above 105% of the card's nominal 3.35 TB/s: a timing
+    fault."""
+    from airmodes_torch.kernels.opcount import PEAK_BYTES_S
+    rate = nbytes / (ms * 1e-3)
+    if rate > 1.05 * PEAK_BYTES_S:
+        raise AssertionError(f"{what}: {rate / 1e9:.1f} GB/s is above 105% "
+                             f"of 3.35 TB/s, a timing fault [{smi}]")
+
+
+def _ablate_check(iq, cfg):
+    """Each cut of P4 launched once on (C, L, 2) int8 `iq` with its count
+    at 0, held exactly against its plain version at every stage and, at
+    stage 5, against kernel B4 on the same operands. Returns (launches per
+    stage, the largest |kernel - plain| over the stages)."""
+    import torch
+    from airmodes_torch.kernels import preamble as K
+    from airmodes_torch.probes import kernel_ablate as KA
+    shape = f"C={iq.shape[0]}, block {cfg.block_size}"
+    KA.reset_launches()
+    cuts = {s: KA.ablate(iq, cfg, s) for s in KA.STAGES}
+    torch.cuda.synchronize()
+    launches = dict(KA.LAUNCHES)
+    ops = K.b4_operands(iq, cfg, KA.TILE)
+    worst = 0.0
+    for s, (mask, ref) in cuts.items():
+        want = KA.ablate_plain(*ops, cfg, s)
+        err = max(float((mask - want[0]).abs().max()),
+                  float((ref - want[1]).abs().max()))
+        worst = max(worst, err)
+        print(f"probe detect_ablate stages<={s} ({shape}): mask ones "
+              f"{int(want[0].sum())}, max |kernel - plain| {err}",
+              flush=True)
+        if not (torch.equal(mask, want[0]) and _ref_equal(ref, want[1])):
+            raise AssertionError(f"detect_ablate stages<={s} != plain "
+                                 f"({shape})")
+        if launches[s] != 1:
+            raise AssertionError(f"detect_ablate stages<={s} launched "
+                                 f"{launches[s]} times")
+    b4 = K.preamble_detect_2d_batch(iq, cfg, KA.TILE)
+    if not (torch.equal(cuts[5][0], b4[0]) and _ref_equal(cuts[5][1],
+                                                          b4[1])):
+        raise AssertionError(f"detect_ablate stage 5 != kernel B4 ({shape})")
+    print(f"probe detect_ablate stage 5 == B4 on the same operands "
+          f"({shape}, {int(b4[0].sum())} hits)", flush=True)
+    return launches, worst
+
+
+def phase_probes(dev, smi, flush):
+    """The probes (phase 16): P1-P3 (bw_probe), P4 (kernel_ablate) and P5
+    with the planar stage split (unordered_stage_probe), each at its
+    script's size. Each probe kernel is launched once through its module's
+    public function with the counts at 0, held against its plain version
+    (exactly; P4 at every stage, and at stage 5 also against B4), then
+    timed by the module's own measure(); P4 also at the main path's B4
+    shape (C = 8 blocks of 2^20). Returns the five kernel rows."""
+    import torch
+    from airmodes_torch.kernels import preamble as K
+    from airmodes_torch.kernels.opcount import (
+        ablate_probe_instr, bound, copy_probe_cost, read_probe_cost)
+    from airmodes_torch.probes import bw_probe as BW
+    from airmodes_torch.probes import kernel_ablate as KA
+    from airmodes_torch.probes import unordered_stage_probe as US
+    t0 = time.perf_counter()
+    rows = []
+
+    # P1-P3 over (2^21, 128) f32, 1 GiB
+    x = BW.make_input(BW.ROWS, dev)
+    BW.reset_launches()
+    got = {"copy": BW.copy(x), "dma_read": BW.dma_read(x),
+           "dma2_read": BW.dma2_read(x)}
+    torch.cuda.synchronize()
+    bw_launches = dict(BW.LAUNCHES)
+    want_read = BW.read_plain(x)
+    bw_err = {}
+    for name, want in (("copy", BW.copy_plain(x)), ("dma_read", want_read),
+                       ("dma2_read", want_read)):
+        bw_err[name] = float((got[name] - want).abs().max())
+        print(f"probe {name}: max |kernel - plain| {bw_err[name]}",
+              flush=True)
+        if not torch.equal(got[name], want) or bw_launches[name] != 1:
+            raise AssertionError(f"probe {name}: kernel != plain or "
+                                 f"launches {bw_launches[name]} != 1")
+    del got, want, want_read
+    lines = {r["name"]: r for r in BW.measure(x)}
+    for r in lines.values():
+        _rate_ok(r["name"], r["bytes"], r["ms"], smi)
+        print(f"bw: {r['name']:30s} {r['ms']:.5f} ms {r['gbps']:.1f} GB/s, "
+              f"host {r['host_ms']:.3f} ms [{smi}]", flush=True)
+    copy_plain_ms = time_ms(lambda: BW.copy_plain(x), iters=5, flush=flush)
+    read_plain_ms = time_ms(lambda: BW.read_plain(x), iters=5, flush=flush)
+    nb, ni = copy_probe_cost(BW.ROWS)
+    bms, by = bound(nb, ni)
+    rows.append({"name": "bw_probe copy (P1)", "route": "cuda",
+                 "source": "airmodes_torch/kernels/csrc/bw_probe.cu",
+                 "replaces": "scripts/tpu_bw_probe.py:63",
+                 "launches": bw_launches["copy"],
+                 "max_abs_err": bw_err["copy"],
+                 "ms": lines["P1 copy kernel (R+W)"]["ms"],
+                 "plain_ms": copy_plain_ms, "bound_ms": bms, "bound_by": by,
+                 "library_ms": lines["torch copy (R+W)"]["ms"]})
+    nb, ni = read_probe_cost(BW.ROWS)
+    bms, by = bound(nb, ni)
+    for key, line, name, ref in (
+            ("dma_read", "P2 bulk-copy read (R)", "bw_probe read (P2)", 84),
+            ("dma2_read", "P3 2-slot bulk-copy read (R)",
+             "bw_probe 2-slot read (P3)", 109)):
+        rows.append({"name": name, "route": "cuda",
+                     "source": "airmodes_torch/kernels/csrc/bw_probe.cu",
+                     "replaces": f"scripts/tpu_bw_probe.py:{ref}",
+                     "launches": bw_launches[key], "max_abs_err": bw_err[key],
+                     "ms": lines[line]["ms"], "plain_ms": read_plain_ms,
+                     "bound_ms": bms, "bound_by": by,
+                     "library_ms": lines["torch sum (R)"]["ms"]})
+    del x
+    torch.cuda.empty_cache()
+
+    # P4: B4 cut after each stage, at the script's C = 16 blocks of 2^22
+    # int8 noise, then at the main path's C = 8 blocks of 2^20
+    p4 = None
+    for channels, block in ((KA.C, KA.BLOCK), (8, 1 << 20)):
+        cfg4 = KA.probe_config(block)
+        iq = torch.from_numpy(KA.make_input(cfg4, channels)).to(dev)
+        ab_launches, ab_err = _ablate_check(iq, cfg4)
+        stages = KA.measure(iq, cfg4)
+        nbytes = KA.stage_bytes(cfg4, channels)
+        for r in stages:
+            _rate_ok(KA.label(r["stages"]), nbytes, r["ms_f32"], smi)
+            inc = "" if r["inc_ms"] is None else f", +{r['inc_ms']:.5f}"
+            print(f"ablate C={channels} block {block}: "
+                  f"{KA.label(r['stages']):10s} {r['ms']:.5f} ms "
+                  f"{r['msps']:.0f} Msps with the int8 -> f32 pass; "
+                  f"{r['ms_f32']:.5f} ms {r['msps_f32']:.0f} Msps without"
+                  f"{inc}; host {r['host_ms']:.3f} ms [{smi}]", flush=True)
+        if p4 is None:
+            ops = K.b4_operands(iq, cfg4, KA.TILE)
+            half = cfg4.nms_chips * cfg4.sps
+            samples = channels * cfg4.block_size
+            bms, by = bound(nbytes, ablate_probe_instr(samples, 5, cfg4.sps,
+                                                       half))
+            p4 = {"name": "detect_ablate (P4, stage 5 = B4)",
+                  "route": "cuda",
+                  "source": "airmodes_torch/kernels/csrc/detect_ablate.cu",
+                  "replaces": "scripts/tpu_kernel_ablate.py:42",
+                  "launches": sum(ab_launches.values()),
+                  "max_abs_err": ab_err, "ms": stages[5]["ms_f32"],
+                  "plain_ms": time_ms(lambda: KA.ablate_plain(
+                      *ops, cfg4, 5), iters=3, flush=flush),
+                  "bound_ms": bms, "bound_by": by, "library_ms": None,
+                  "stage_ms": {r["stages"]: r["ms_f32"] for r in stages},
+                  "launches_by_stage": ab_launches}
+            del ops
+        del iq
+        torch.cuda.empty_cache()
+    rows.append(p4)
+
+    # P5 and the planar stage split, C = 64 blocks of 2^22 in planar int8
+    cfg5 = US.probe_config()
+    xi, xq = US.make_input(cfg5, US.C, US.TILE, dev)
+    US.reset_launches()
+    got = US.step_floor(xi, xq, cfg5, US.TILE)
+    torch.cuda.synchronize()
+    fl_launches = US.LAUNCHES["planar_floor"]
+    want = US.floor_plain(xi, xq, cfg5, US.TILE)
+    fl_err = int((got - want).abs().max())
+    print(f"probe planar_floor: max |kernel - plain| {fl_err}", flush=True)
+    if not torch.equal(got, want) or fl_launches != 1:
+        raise AssertionError(f"planar_floor != plain or launches "
+                             f"{fl_launches} != 1")
+    split = {r["name"]: r for r in US.measure(xi, xq, cfg5)}
+    nbytes = US.floor_bytes(cfg5, US.C)
+    _rate_ok("planar_floor", nbytes, split["floor"]["ms"], smi)
+    for r in split.values():
+        card = "not measured" if r["card_ms"] is None else \
+            f"{r['card_ms']:.5f} ms"
+        print(f"stage split: {r['name']:6s} {r['ms']:.5f} ms "
+              f"{r['gsps']:.3f} Gsps, card {card}, host best "
+              f"{r['host_best_ms']:.3f} ms "
+              f"(all {[round(t, 3) for t in r['host_ms']]}) [{smi}]",
+              flush=True)
+    bms, by = bound(nbytes, 0)
+    rows.append({"name": "planar_floor (P5)", "route": "cuda",
+                 "source": "airmodes_torch/kernels/csrc/planar_floor.cu",
+                 "replaces": "scripts/tpu_unordered_stage_probe.py:50",
+                 "launches": fl_launches, "max_abs_err": fl_err,
+                 "ms": split["floor"]["card_ms"],
+                 "plain_ms": time_ms(lambda: US.floor_plain(
+                     xi, xq, cfg5, US.TILE), iters=5, flush=flush),
+                 "bound_ms": bms, "bound_by": by, "library_ms": None})
+    del xi, xq, got, want
+    torch.cuda.empty_cache()
+    print(f"probes: phase 16 took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return rows
+
+
 def _table_messages(table, cfg, full_scale):
     """Messages of a sharded (C, T) table (indices global in the step),
     sorted by time."""
@@ -1842,6 +2022,7 @@ def main() -> int:
         B2_OPS_PER_WINDOW_SAMPLE, PEAK_F32_INSTR_S, b1_ops_parent,
         b1_ops_per_sample, b34_ops_per_sample, b5p_ops_per_sample,
         b6_ops_per_sample, bound)
+    from airmodes_torch.probes import flush_buffer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1857,7 +2038,7 @@ def main() -> int:
             if ("registers" in line or "spill" in line
                     or "Compiling entry" in line):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    flush = flush_buffer(dev)
 
     cfg = DspConfig()
     t0 = time.perf_counter()
@@ -1982,6 +2163,7 @@ def main() -> int:
                   rs_path, [os.path.join(tmp, "ch0.uc8"),
                             os.path.join(tmp, "ch1.uc8")])
         sh_launches = phase_sharded(cfg, dev, tmp, smi)
+    probe_rows = phase_probes(dev, smi, flush)
 
     half = cfg.nms_chips * cfg.sps
     b1_ms, b1_plain, b1_bytes, b1_samples = b1_t
@@ -2057,6 +2239,7 @@ def main() -> int:
              "launches": b6_launches[C], "max_abs_err": b6_err, "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
              "library_ms": None})
+    kernels += probe_rows
     ms, plain_ms, n_bytes, samples = b6_t10[BATCH]
     half10 = cfg10.nms_chips * cfg10.sps
     bms, by = bound(n_bytes, samples * b6_ops_per_sample(cfg10.sps, half10))
