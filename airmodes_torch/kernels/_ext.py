@@ -52,8 +52,9 @@ SIGNATURES = {
     },
     # the probes (airmodes_torch/probes/)
     "bw_probe": {
-        "bw_copy_launch": [_vp, _vp, _ll, _vp],
-        "bw_read_launch": [_vp, _vp, _ll, _i, _vp],
+        "bw_copy_launch": [_vp, _vp, _ll, _ll, _ll, _vp],
+        "bw_read_launch": [_vp, _vp, _ll, _vp],
+        "bw_ring_read_launch": [_vp, _vp, _vp, _ll, _ll, _i, _i, _vp],
     },
     "planar_floor": {
         "planar_floor_launch": [_vp, _vp, _vp, _vp, _i, _ll, _i, _i, _i, _i,

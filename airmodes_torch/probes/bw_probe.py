@@ -2,21 +2,26 @@
 a read, and whether bulk asynchronous copies into shared memory reach it.
 
 The counterpart of `scripts/tpu_bw_probe.py`. Over a (2^21, 128) f32 array
-(1 GiB) it times five lines:
+(1 GiB) it times six lines:
 
   torch copy (R+W)  `x + 1.0`, one PyTorch call (the script's XLA copy)
   torch sum (R)     `torch.sum(x)` (the script's XLA reduction)
-  P1 copy           kernel `copy` (csrc/bw_probe.cu): y = x + 1
+  torch window sums `window_sums`: the column sums of every 144-row window
+                    in one call, reading the bytes P2 and P3 read (the
+                    yardstick of P2 and P3)
+  P1 copy           kernel `copy` (csrc/bw_probe.cu): y = x + 1, each CTA
+                    over one contiguous 2 KB span
   P2 bulk read      kernel `dma_read`: per 144-row window one bulk copy
                     into shared memory, then its column sums, written to 8
                     output rows
-  P3 2-slot read    kernel `dma2_read`: the same output from persistent
-                    CTAs that fetch their next window while they sum this
-                    one
+  P3 ring read      kernel `dma2_read`: the same output from persistent
+                    CTAs that take windows from a ticket counter and keep
+                    rings of half-window copies in flight while two
+                    warpgroups sum
 
 Each line: the card's ms (`probes.time_ms`: CUDA events, median of 20),
-the rate of the bytes it moves (each input byte read once, each output
-byte written once), and the host clock's median, as the script read its
+the rate of its own bytes (each input byte read once, each output byte
+written once), and the host clock's median, as the script read its
 times. The torch lines are yardsticks, not kernels of the port.
 
     python -m airmodes_torch.probes.bw_probe
@@ -40,6 +45,11 @@ from . import flush_buffer, host_ms, smi_line, time_ms
 ROWS, LANES = 1 << 21, 128   # 2^21 x 128 f32 = 1 GiB
 WROWS = 144                  # rows per window of P2 and P3
 OUT_ROWS = 8                 # output rows per window
+SMEM_PER_CTA = 232_448       # shared memory a CTA can have on Hopper
+COPY_THREADS = 128           # P1's CTA, one float4 per thread
+HALF_BYTES = WROWS // 2 * LANES * 4  # a half-window of P3's ring: 36,864
+RING_GROUPS = 2              # P3's pipelines per CTA, a ring each
+RING_OFFSET = 128            # P3's mbarriers and slot windows, then its ring
 
 # kernel launches since the last reset_launches(); only the CUDA paths count
 LAUNCHES = {"copy": 0, "dma_read": 0, "dma2_read": 0}
@@ -64,6 +74,25 @@ def windows(rows: int) -> int:
     return rows // WROWS
 
 
+def copy_geometry(rows: int):
+    """(span, grid) of P1 over (rows, 128) f32: each CTA takes one
+    contiguous span of float4s, one per thread (2 KB); the last CTA's span
+    is cut at the end of the array."""
+    n4 = rows * LANES // 4
+    return COPY_THREADS, -(-n4 // COPY_THREADS)
+
+
+def ring_geometry(rows: int, sms: int):
+    """(grid, stages, shared-memory bytes) of P3 over (rows, 128) f32 on a
+    card of `sms` SMs: one persistent CTA per SM, or one per window when
+    there are fewer (one that takes no window when there is none), and as
+    many half-window slots as fit, an equal ring for each pipeline."""
+    grid = max(1, min(windows(rows), sms))
+    per = (SMEM_PER_CTA - RING_OFFSET) // HALF_BYTES // RING_GROUPS
+    stages = per * RING_GROUPS
+    return grid, stages, RING_OFFSET + stages * HALF_BYTES
+
+
 def copy_plain(x: torch.Tensor) -> torch.Tensor:
     """Plain version of P1: x + 1 in f32."""
     return x + 1.0
@@ -81,6 +110,13 @@ def read_plain(x: torch.Tensor) -> torch.Tensor:
         steps * OUT_ROWS, LANES)
 
 
+def window_sums(x: torch.Tensor) -> torch.Tensor:
+    """Each window's column sums in one PyTorch call (the yardstick of P2
+    and P3: their reads, without their 8-row broadcast)."""
+    steps = windows(x.shape[0])
+    return torch.sum(x[:steps * WROWS].view(steps, WROWS, LANES), dim=1)
+
+
 def _operand(x: torch.Tensor) -> torch.Tensor:
     """x checked, and made contiguous and 16-byte aligned for a launch;
     None when x lies on the CPU (the plain versions take it)."""
@@ -95,6 +131,18 @@ def _operand(x: torch.Tensor) -> torch.Tensor:
     return x.clone() if x.data_ptr() % 16 else x
 
 
+# P3's ticket counters, one per (card, stream): two zero ints, made once;
+# each launch takes windows from the first and leaves both 0
+_TICKETS = {}
+
+
+def _tickets(dev: torch.device, stream: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return _TICKETS[key]
+
+
 def copy(x: torch.Tensor) -> torch.Tensor:
     """P1: x + 1 over a (rows, 128) f32 array."""
     xc = _operand(x)
@@ -102,38 +150,62 @@ def copy(x: torch.Tensor) -> torch.Tensor:
         return copy_plain(x)
     from ..kernels import _ext
     y = torch.empty_like(xc)
+    if xc.numel() == 0:
+        return y
+    span4, grid = copy_geometry(xc.shape[0])
     lib = _ext.lib("bw_probe")
     with torch.cuda.device(xc.device):
         rc = lib.bw_copy_launch(xc.data_ptr(), y.data_ptr(), xc.numel(),
+                                span4, grid,
                                 torch.cuda.current_stream().cuda_stream)
     _ext.check(rc, "bw_copy")
     LAUNCHES["copy"] += 1
     return y
 
 
-def dma_read(x: torch.Tensor, double_buffer: bool = False) -> torch.Tensor:
-    """P2 (or P3 with double_buffer): the column sums of each 144-row
-    window of a (rows, 128) f32 array -> (windows * 8, 128) f32."""
+def _read_out(xc: torch.Tensor) -> torch.Tensor:
+    return torch.empty((windows(xc.shape[0]) * OUT_ROWS, LANES),
+                       dtype=torch.float32, device=xc.device)
+
+
+def dma_read(x: torch.Tensor) -> torch.Tensor:
+    """P2: the column sums of each 144-row window of a (rows, 128) f32
+    array -> (windows * 8, 128) f32, one CTA per window."""
     xc = _operand(x)
     if xc is None:
         return read_plain(x)
     from ..kernels import _ext
-    rows = xc.shape[0]
-    out = torch.empty((windows(rows) * OUT_ROWS, LANES), dtype=torch.float32,
-                      device=xc.device)
+    out = _read_out(xc)
     lib = _ext.lib("bw_probe")
     with torch.cuda.device(xc.device):
-        rc = lib.bw_read_launch(xc.data_ptr(), out.data_ptr(), rows,
-                                int(double_buffer),
+        rc = lib.bw_read_launch(xc.data_ptr(), out.data_ptr(), xc.shape[0],
                                 torch.cuda.current_stream().cuda_stream)
     _ext.check(rc, "bw_read")
-    LAUNCHES["dma2_read" if double_buffer else "dma_read"] += 1
+    LAUNCHES["dma_read"] += 1
     return out
 
 
 def dma2_read(x: torch.Tensor) -> torch.Tensor:
-    """P3: dma_read's output from double-buffered persistent CTAs."""
-    return dma_read(x, double_buffer=True)
+    """P3: dma_read's output from persistent CTAs that take windows from a
+    ticket counter into rings of half-window copies (ring_geometry)."""
+    xc = _operand(x)
+    if xc is None:
+        return read_plain(x)
+    from ..kernels import _ext
+    out = _read_out(xc)
+    grid, stages, smem = ring_geometry(
+        xc.shape[0],
+        torch.cuda.get_device_properties(xc.device).multi_processor_count)
+    lib = _ext.lib("bw_probe")
+    with torch.cuda.device(xc.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.bw_ring_read_launch(
+            xc.data_ptr(), out.data_ptr(),
+            _tickets(xc.device, stream).data_ptr(), xc.shape[0], grid,
+            stages, smem, stream)
+    _ext.check(rc, "bw_ring_read")
+    LAUNCHES["dma2_read"] += 1
+    return out
 
 
 def lines(rows: int):
@@ -143,9 +215,11 @@ def lines(rows: int):
     read_b = read_probe_cost(rows, LANES, WROWS, OUT_ROWS)[0]
     return (("torch copy (R+W)", lambda x: x + 1.0, copy_b),
             ("torch sum (R)", torch.sum, rows * LANES * 4 + 4),
+            ("torch window sums (R)", window_sums,
+             read_probe_cost(rows, LANES, WROWS, 1)[0]),
             ("P1 copy kernel (R+W)", copy, copy_b),
             ("P2 bulk-copy read (R)", dma_read, read_b),
-            ("P3 2-slot bulk-copy read (R)", dma2_read, read_b))
+            ("P3 ring bulk-copy read (R)", dma2_read, read_b))
 
 
 def measure(x: torch.Tensor) -> list:

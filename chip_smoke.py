@@ -96,12 +96,15 @@ process per source, all at once), then:
      phase 13's contract), and the (1, 4) planar step through a one-rank
      NCCL process group (== the local mesh's tables);
  16. runs the probes (`airmodes_torch.probes`) at their TPU scripts' sizes:
-     P1-P3 (copy and bulk-copy reads over 1 GiB of f32), P4 (kernel B4
-     cut after each stage of its rule, C = 16 blocks of 2^22) and P5 (the
-     planar path's load floor, C = 64 blocks of 2^22), each launched once
-     with its count at 0 and held exactly against its plain version, P4's
-     stage 5 also against B4; then each probe's readings (the planar
-     stage split among them), failing any rate above 105% of 3.35 TB/s;
+     P1-P3 (copy and bulk-copy reads over 1 GiB of f32; first also at
+     2^21 - 3, 1000 and 100 rows: a ragged tail, fewer windows than SMs,
+     no window), P4 (kernel B4 cut after each stage of its rule, C = 16
+     blocks of 2^22) and P5 (the planar path's load floor, C = 64 blocks
+     of 2^22), each launched once with its count at 0 and held exactly
+     against its plain version, P4's stage 5 also against B4; then each
+     probe's readings (the planar stage split among them; P1-P3 beside
+     `x + 1.0`, `torch.sum` and the windows' sums in one call, each in
+     GB/s of its own bytes), failing any rate above 105% of 3.35 TB/s;
  17. prints one JSON line of per-kernel numbers, the card line, and last
      {"ok": true, "device": {...}}.
 
@@ -1864,54 +1867,71 @@ def phase_probes(dev, smi, flush):
     t0 = time.perf_counter()
     rows = []
 
-    # P1-P3 over (2^21, 128) f32, 1 GiB
-    x = BW.make_input(BW.ROWS, dev)
-    BW.reset_launches()
-    got = {"copy": BW.copy(x), "dma_read": BW.dma_read(x),
-           "dma2_read": BW.dma2_read(x)}
-    torch.cuda.synchronize()
-    bw_launches = dict(BW.LAUNCHES)
-    want_read = BW.read_plain(x)
-    bw_err = {}
-    for name, want in (("copy", BW.copy_plain(x)), ("dma_read", want_read),
-                       ("dma2_read", want_read)):
-        bw_err[name] = float((got[name] - want).abs().max())
-        print(f"probe {name}: max |kernel - plain| {bw_err[name]}",
-              flush=True)
-        if not torch.equal(got[name], want) or bw_launches[name] != 1:
-            raise AssertionError(f"probe {name}: kernel != plain or "
-                                 f"launches {bw_launches[name]} != 1")
-    del got, want, want_read
+    # P1-P3, each launched once per size with its counts at 0 and held
+    # exactly against its plain version: 3 rows short of (2^21, 128) f32
+    # (a 77-row tail past the last window), 1000 rows (6 windows, fewer
+    # than the SMs), 100 rows (no window: an empty output), then the full
+    # 1 GiB, whose run's launches the rows report
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"bw_probe dynamic shared memory (their ptxas lines are above): "
+          f"copy_kernel 0, dma_read_kernel {BW.WROWS * BW.LANES * 4}, "
+          f"ring_read_kernel {BW.ring_geometry(BW.ROWS, sms)[2]} of "
+          f"{BW.SMEM_PER_CTA} bytes", flush=True)
+    bw_err = {k: 0.0 for k in BW.LAUNCHES}
+    for n_rows in (BW.ROWS - 3, 1000, 100, BW.ROWS):
+        x = BW.make_input(n_rows, dev)
+        BW.reset_launches()
+        got = {"copy": BW.copy(x), "dma_read": BW.dma_read(x),
+               "dma2_read": BW.dma2_read(x)}
+        torch.cuda.synchronize()
+        bw_launches = dict(BW.LAUNCHES)
+        want_read = BW.read_plain(x)
+        for name, want in (("copy", BW.copy_plain(x)),
+                           ("dma_read", want_read), ("dma2_read", want_read)):
+            err = float((got[name] - want).abs().max()) if want.numel() \
+                else 0.0
+            bw_err[name] = max(bw_err[name], err)
+            print(f"probe {name} ({n_rows} rows, output "
+                  f"{tuple(want.shape)}): max |kernel - plain| {err}, "
+                  f"launches {bw_launches[name]}", flush=True)
+            if not torch.equal(got[name], want) or bw_launches[name] != 1:
+                raise AssertionError(f"probe {name} at {n_rows} rows: kernel "
+                                     f"!= plain or launches "
+                                     f"{bw_launches[name]} != 1")
+        del got, want, want_read
     lines = {r["name"]: r for r in BW.measure(x)}
     for r in lines.values():
         _rate_ok(r["name"], r["bytes"], r["ms"], smi)
-        print(f"bw: {r['name']:30s} {r['ms']:.5f} ms {r['gbps']:.1f} GB/s, "
-              f"host {r['host_ms']:.3f} ms [{smi}]", flush=True)
+        print(f"bw: {r['name']:30s} {r['ms']:.5f} ms {r['gbps']:.1f} GB/s "
+              f"over its {r['bytes']} bytes, host {r['host_ms']:.3f} ms "
+              f"[{smi}]", flush=True)
     copy_plain_ms = time_ms(lambda: BW.copy_plain(x), iters=5, flush=flush)
     read_plain_ms = time_ms(lambda: BW.read_plain(x), iters=5, flush=flush)
     nb, ni = copy_probe_cost(BW.ROWS)
     bms, by = bound(nb, ni)
+    p1 = lines["P1 copy kernel (R+W)"]
     rows.append({"name": "bw_probe copy (P1)", "route": "cuda",
                  "source": "airmodes_torch/kernels/csrc/bw_probe.cu",
                  "replaces": "scripts/tpu_bw_probe.py:63",
                  "launches": bw_launches["copy"],
-                 "max_abs_err": bw_err["copy"],
-                 "ms": lines["P1 copy kernel (R+W)"]["ms"],
+                 "max_abs_err": bw_err["copy"], "ms": p1["ms"],
                  "plain_ms": copy_plain_ms, "bound_ms": bms, "bound_by": by,
-                 "library_ms": lines["torch copy (R+W)"]["ms"]})
+                 "library_ms": lines["torch copy (R+W)"]["ms"],
+                 "gbps": p1["gbps"]})
     nb, ni = read_probe_cost(BW.ROWS)
     bms, by = bound(nb, ni)
     for key, line, name, ref in (
             ("dma_read", "P2 bulk-copy read (R)", "bw_probe read (P2)", 84),
-            ("dma2_read", "P3 2-slot bulk-copy read (R)",
-             "bw_probe 2-slot read (P3)", 109)):
+            ("dma2_read", "P3 ring bulk-copy read (R)",
+             "bw_probe ring read (P3)", 109)):
         rows.append({"name": name, "route": "cuda",
                      "source": "airmodes_torch/kernels/csrc/bw_probe.cu",
                      "replaces": f"scripts/tpu_bw_probe.py:{ref}",
                      "launches": bw_launches[key], "max_abs_err": bw_err[key],
                      "ms": lines[line]["ms"], "plain_ms": read_plain_ms,
                      "bound_ms": bms, "bound_by": by,
-                     "library_ms": lines["torch sum (R)"]["ms"]})
+                     "library_ms": lines["torch window sums (R)"]["ms"],
+                     "gbps": lines[line]["gbps"]})
     del x
     torch.cuda.empty_cache()
 

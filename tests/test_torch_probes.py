@@ -89,17 +89,30 @@ def _t(a):
 # --- P1-P3: scripts/tpu_bw_probe.py ------------------------------------------
 
 ROWS = 4096          # 28 windows of 144 rows; the last 64 rows are not read
+READ_FNS = ("pallas_dma_read", "pallas_dma2_read")
+# P2 and P3 beyond ROWS: 6 windows (fewer than the card's SMs) and 3
+# windows with a 77-row tail
+READ_CASES = [pytest.param(fn, ROWS, id=fn) for fn in READ_FNS] + [
+    pytest.param(fn, rows, id=f"{fn}-{rows}") for rows in (1000, 144 * 3 + 77)
+    for fn in READ_FNS]
+
+
+@functools.lru_cache(maxsize=None)
+def _bw_script(rows):
+    return _load("tpu_bw_probe.py",
+                 ["copy_kernel", "pallas_copy", "dma_kernel",
+                  "pallas_dma_read", "dma2_kernel", "pallas_dma2_read"],
+                 ROWS=rows, LANES=BW.LANES, TROWS=1024, WROWS=BW.WROWS)
+
+
+def _bw_input(rows):
+    return np.random.default_rng(0).standard_normal(
+        (rows, BW.LANES)).astype(np.float32)
 
 
 @pytest.fixture(scope="module")
 def bw():
-    ns = _load("tpu_bw_probe.py",
-               ["copy_kernel", "pallas_copy", "dma_kernel", "pallas_dma_read",
-                "dma2_kernel", "pallas_dma2_read"],
-               ROWS=ROWS, LANES=BW.LANES, TROWS=1024, WROWS=BW.WROWS)
-    x = np.random.default_rng(0).standard_normal((ROWS, BW.LANES)).astype(
-        np.float32)
-    return ns, x
+    return _bw_script(ROWS), _bw_input(ROWS)
 
 
 def test_copy_plain_equals_copy_kernel(bw):
@@ -111,14 +124,14 @@ def test_copy_plain_equals_copy_kernel(bw):
     np.testing.assert_array_equal(BW.copy_plain(_t(x)).numpy(), want)
 
 
-@pytest.mark.parametrize("fn", ["pallas_dma_read", "pallas_dma2_read"])
-def test_read_plain_matches_dma_kernels(bw, fn):
+@pytest.mark.parametrize("fn, rows", READ_CASES)
+def test_read_plain_matches_dma_kernels(fn, rows):
     """P2 and P3: each window's column sums on its 8 output rows, to rtol
     1e-5 (XLA sums the window in another order than the port's row
     order). Rows past the last whole window are read by neither side:
     NaN there changes nothing."""
-    ns, x = bw
-    steps = ROWS // BW.WROWS
+    ns, x = _bw_script(rows), _bw_input(rows)
+    steps = rows // BW.WROWS
     want = np.asarray(ns[fn](x))
     got = BW.dma2_read(_t(x)) if fn == "pallas_dma2_read" else \
         BW.dma_read(_t(x))
@@ -144,6 +157,86 @@ def test_read_plain_sums_in_row_order():
         want[w] = s
     got = BW.read_plain(_t(x)).numpy().reshape(2, 8, BW.LANES)
     np.testing.assert_array_equal(got, np.repeat(want[:, None], 8, axis=1))
+
+
+def test_window_sums_is_the_windows_column_sums():
+    """The yardstick of P2 and P3 sums each window's columns (in
+    PyTorch's order, so to rtol 1e-5) and reads no row past the last
+    whole window."""
+    x = _bw_input(144 * 3 + 77)
+    x[3 * BW.WROWS:] = np.nan
+    got = BW.window_sums(_t(x)).numpy()
+    assert got.shape == (3, BW.LANES)
+    want = BW.read_plain(_t(x)).numpy()[::BW.OUT_ROWS]
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+SMS = 132                              # an H100 SXM's SMs
+GEOMETRY_ROWS = [BW.ROWS, BW.ROWS - 3, 1000, 100]
+
+
+@pytest.mark.parametrize("rows", GEOMETRY_ROWS)
+def test_ring_geometry_fits_and_walks_every_window_once(rows):
+    """P3's launch geometry fits a CTA's 232,448 bytes of shared memory
+    (the ring after its barriers and slot windows), and the kernel's walk
+    reads every window once. Its pipelines (RING_GROUPS per CTA) draw
+    tickets from one counter in whatever order the card runs them (here a
+    seeded random one); each ends on its first ticket past the last
+    window, and its half-windows j (two per window, then the end at the
+    next even j) fill slot j % per of its own ring as fill j // per, so
+    each slot's fills come in order (one parity bit names a barrier's
+    phase). At 100 rows no window is drawn."""
+    grid, stages, smem = BW.ring_geometry(rows, SMS)
+    steps = BW.windows(rows)
+    assert smem <= 232_448 == BW.SMEM_PER_CTA
+    assert smem >= BW.RING_OFFSET + stages * BW.HALF_BYTES
+    assert stages * (2 * 8 + 4) <= BW.RING_OFFSET
+    groups = BW.RING_GROUPS
+    per = stages // groups
+    assert stages % groups == 0 and per >= 2
+    assert grid == max(1, min(steps, SMS))
+    pipes = grid * groups
+    rng = np.random.default_rng(rows)
+    taken = [[] for _ in range(pipes)]
+    live, ticket = list(range(pipes)), 0
+    while live:
+        p = live[rng.integers(len(live))]
+        taken[p].append(ticket)
+        ticket += 1
+        if taken[p][-1] >= steps:
+            live.remove(p)
+    assert ticket == steps + pipes
+    assert sorted(w for t in taken for w in t[:-1]) == list(range(steps))
+    for p, t in enumerate(taken):
+        g = p % groups
+        fills = {}
+        for j in range(2 * len(t) - 1):
+            fills.setdefault(g * per + j % per, []).append(j // per)
+        for slot, got in fills.items():
+            assert slot // per == g and got == list(range(len(got)))
+
+
+def _copy_walk(length):
+    """How often the P1 kernel's threads touch each float4 of a CTA whose
+    span holds `length` of them."""
+    hits = np.zeros(length, np.int64)
+    for tid in range(BW.COPY_THREADS):
+        hits[tid:length:BW.COPY_THREADS] += 1
+    return hits
+
+
+@pytest.mark.parametrize("rows", GEOMETRY_ROWS)
+def test_copy_geometry_walks_every_float4_once(rows):
+    """P1's spans tile the array's float4s, every CTA has some, the grid
+    fits a launch, and the kernel's walk of a full span and of the last
+    (cut) span touches each float4 once."""
+    span4, grid = BW.copy_geometry(rows)
+    n4 = rows * BW.LANES // 4
+    assert span4 % BW.COPY_THREADS == 0
+    assert (grid - 1) * span4 < n4 <= grid * span4
+    assert grid < 2 ** 31
+    assert (_copy_walk(span4) == 1).all()
+    assert (_copy_walk(n4 - (grid - 1) * span4) == 1).all()
 
 
 # --- P4: scripts/tpu_kernel_ablate.py ----------------------------------------
@@ -357,7 +450,7 @@ def test_entry_point_runs_the_plain_versions_on_the_cpu(name, capsys,
     out = capsys.readouterr().out
     assert "device not measured" in out and "GB/s" not in out
     assert sum(mod.LAUNCHES.values()) == 0
-    n_lines = {"bw_probe": 5, "kernel_ablate": 7,
+    n_lines = {"bw_probe": 6, "kernel_ablate": 7,
                "unordered_stage_probe": 6}[name]
     assert out.count("device not measured") == n_lines
 
