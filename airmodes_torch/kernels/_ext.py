@@ -28,10 +28,14 @@ _CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 
 # --fmad=false: no product may be contracted into an FMA behind the
-# source's back; the kernels write the one FMA they need explicitly
+# source's back; the kernels write the one FMA they need explicitly.
+# --cudart static (nvcc's default, named so that no toolkit changes it):
+# each library launches through its own copy of the runtime, so its
+# launch-error check sees its own launches' errors alone; the profiler's
+# trace records those launches all the same (trace_check.py)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
-              "-Xptxas", "-v"]
+              "--cudart", "static", "-Xptxas", "-v"]
 
 _vp, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float

@@ -42,7 +42,9 @@ f32 fast path, on framed (L+N+R, 2) blocks of f32 (or int8/int16) I/Q:
 
 Each kernel wrapper launches its hand-written CUDA kernel (csrc/) when its
 inputs are CUDA tensors, and runs the plain PyTorch version beside it only
-when they lie on the CPU. It counts its kernel launches in `LAUNCHES`.
+when they lie on the CPU. It counts its kernel launches in `LAUNCHES`, and
+names either in a profiler trace with a range "<ID> <kernel>" (B1/B5o/B5p
+detect_cands, B2 slice_windows, B3/B4/B6 detect_mask).
 
 Numerics: the plain versions and the kernels compute the reference's f32
 values bit for bit, including the FMAs that XLA on the CPU contracts: power
@@ -68,6 +70,7 @@ from ..config import DspConfig
 from ..constants import PREAMBLE_PULSE_CHIPS, PREAMBLE_QUIET_CHIPS
 from ..dsp import pipeline as P
 from ..dsp.pipeline import _f32, fma_f32, power_f32, resolve_device
+from ..utils.profiling import kernel_range
 
 _LOOKBACK = 256                            # noise window + peak/NMS lookback
 _LOOKBACK_ROWS = _LOOKBACK // 128          # 2
@@ -436,7 +439,9 @@ def launch_detect_cands(xi8, xq8, cfg, tile, scratch, out,
         raise ValueError("B1 buffers of the wrong shape or not contiguous")
     thresh = _prescreen_threshold(cfg) if prescreen else _f32(cfg.threshold)
     lib = _ext.lib("detect_cands")
-    with torch.cuda.device(xi8.device):
+    route = _cands_route(ordered, prescreen)
+    with torch.cuda.device(xi8.device), \
+            kernel_range(f"{route} detect_cands"):
         rc = lib.detect_cands_launch(
             xi8.data_ptr(), xq8.data_ptr(), scratch.data_ptr(),
             out.data_ptr(), C, p, tile, tiles, nchunk, per_lane, per_tile,
@@ -446,8 +451,13 @@ def launch_detect_cands(xi8, xq8, cfg, tile, scratch, out,
             torch.cuda.current_stream(xi8.device).cuda_stream)
     _ext.check(rc, "detect_cands")
     LAUNCHES["detect_cands"] += 1
-    DETECT_CANDS_ROUTES["B5p" if prescreen else
-                        "B5o" if ordered else "B1"] += 1
+    DETECT_CANDS_ROUTES[route] += 1
+
+
+def _cands_route(ordered: bool, prescreen: bool) -> str:
+    """The kernel table's ID of a detect_cands call: B1 (unordered), B5o
+    (ordered) or B5p (prescreen)."""
+    return "B5p" if prescreen else "B5o" if ordered else "B1"
 
 
 def preamble_detect_cands_planar(xi8: torch.Tensor, xq8: torch.Tensor,
@@ -486,8 +496,10 @@ def preamble_detect_cands_planar(xi8: torch.Tensor, xq8: torch.Tensor,
     if xi8.device != xq8.device:
         raise ValueError("I and Q must be on one device")
     if xi8.device.type == "cpu":
-        return detect_cands_plain(xi8, xq8, cfg, tile, ordered, prescreen,
-                                  per_tile, per_lane)
+        with kernel_range(f"{_cands_route(ordered, prescreen)} "
+                          f"detect_cands"):
+            return detect_cands_plain(xi8, xq8, cfg, tile, ordered,
+                                      prescreen, per_tile, per_lane)
     if xi8.device.type != "cuda":
         raise ValueError(f"unsupported device {xi8.device}")
     xi8, xq8 = (_aligned16(a.contiguous()) for a in (xi8, xq8))
@@ -622,7 +634,7 @@ def launch_slice_windows(ri, rq, base, cfg, out, extra: int = 0) -> None:
     if (ri.data_ptr() | rq.data_ptr() | out.data_ptr()) % 16:
         raise ValueError("B2 streams and output must be 16-byte aligned")
     lib = _ext.lib("slice_windows")
-    with torch.cuda.device(ri.device):
+    with torch.cuda.device(ri.device), kernel_range("B2 slice_windows"):
         rc = lib.slice_windows_launch(
             ri.data_ptr(), rq.data_ptr(), base.data_ptr(), out.data_ptr(),
             n, ri.numel(), out_len, out.shape[1], _f32(1.0 / 127.0),
@@ -643,7 +655,8 @@ def _slice_windows(ri: torch.Tensor, rq: torch.Tensor, base: torch.Tensor,
     if not (ri.device == rq.device == base.device):
         raise ValueError("streams and starts must be on one device")
     if ri.device.type == "cpu":
-        return slice_windows_plain(ri, rq, base, cfg, extra, cols)
+        with kernel_range("B2 slice_windows"):
+            return slice_windows_plain(ri, rq, base, cfg, extra, cols)
     if ri.device.type != "cuda":
         raise ValueError(f"unsupported device {ri.device}")
     out = torch.empty((base.shape[0], cols), dtype=torch.float32,
@@ -959,7 +972,8 @@ def launch_detect_mask(x, valid, cfg, mask, ref, one_d: bool = False) -> None:
             raise ValueError("B3/B4 outputs of the wrong shape, type or "
                              "layout")
     lib = _ext.lib("detect_mask")
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), \
+            kernel_range(f"{_mask_route(C, one_d)} detect_mask"):
         rc = lib.detect_mask_launch(
             x.data_ptr(), mask.data_ptr(), ref.data_ptr(), C, L,
             min(int(valid), L), n, -(-n // _CHUNK), int(one_d), cfg.sps,
@@ -975,12 +989,19 @@ def launch_detect_mask(x, valid, cfg, mask, ref, one_d: bool = False) -> None:
         DETECT_MASK_ROUTES["B3" if C == 1 else "B4"] += 1
 
 
+def _mask_route(C: int, one_d: bool) -> str:
+    """The kernel table's ID of a detect_mask call over C blocks: B3 (one
+    block), B4 (a batch) or B6 (the 1-D form, either)."""
+    return "B6" if one_d else "B3" if C == 1 else "B4"
+
+
 def _detect_mask(x: torch.Tensor, valid: int, length: int,
                  cfg: DspConfig, one_d: bool = False):
     """B3/B4 (B6 with one_d) on x's device: the kernel for a CUDA tensor,
     the plain version for a CPU tensor."""
     if x.device.type == "cpu":
-        return detect_mask_plain(x, valid, length, cfg, one_d)
+        with kernel_range(f"{_mask_route(x.shape[0], one_d)} detect_mask"):
+            return detect_mask_plain(x, valid, length, cfg, one_d)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     C = x.shape[0]

@@ -40,6 +40,7 @@ import torch
 
 from ..kernels.opcount import copy_probe_cost, read_probe_cost
 from ..dsp.pipeline import resolve_device
+from ..utils.profiling import kernel_range
 from . import flush_buffer, host_ms, smi_line, time_ms
 
 ROWS, LANES = 1 << 21, 128   # 2^21 x 128 f32 = 1 GiB
@@ -147,14 +148,15 @@ def copy(x: torch.Tensor) -> torch.Tensor:
     """P1: x + 1 over a (rows, 128) f32 array."""
     xc = _operand(x)
     if xc is None:
-        return copy_plain(x)
+        with kernel_range("P1 bw_copy"):
+            return copy_plain(x)
     from ..kernels import _ext
     y = torch.empty_like(xc)
     if xc.numel() == 0:
         return y
     span4, grid = copy_geometry(xc.shape[0])
     lib = _ext.lib("bw_probe")
-    with torch.cuda.device(xc.device):
+    with torch.cuda.device(xc.device), kernel_range("P1 bw_copy"):
         rc = lib.bw_copy_launch(xc.data_ptr(), y.data_ptr(), xc.numel(),
                                 span4, grid,
                                 torch.cuda.current_stream().cuda_stream)
@@ -173,11 +175,12 @@ def dma_read(x: torch.Tensor) -> torch.Tensor:
     array -> (windows * 8, 128) f32, one CTA per window."""
     xc = _operand(x)
     if xc is None:
-        return read_plain(x)
+        with kernel_range("P2 bw_read"):
+            return read_plain(x)
     from ..kernels import _ext
     out = _read_out(xc)
     lib = _ext.lib("bw_probe")
-    with torch.cuda.device(xc.device):
+    with torch.cuda.device(xc.device), kernel_range("P2 bw_read"):
         rc = lib.bw_read_launch(xc.data_ptr(), out.data_ptr(), xc.shape[0],
                                 torch.cuda.current_stream().cuda_stream)
     _ext.check(rc, "bw_read")
@@ -190,14 +193,15 @@ def dma2_read(x: torch.Tensor) -> torch.Tensor:
     ticket counter into rings of half-window copies (ring_geometry)."""
     xc = _operand(x)
     if xc is None:
-        return read_plain(x)
+        with kernel_range("P3 bw_ring_read"):
+            return read_plain(x)
     from ..kernels import _ext
     out = _read_out(xc)
     grid, stages, smem = ring_geometry(
         xc.shape[0],
         torch.cuda.get_device_properties(xc.device).multi_processor_count)
     lib = _ext.lib("bw_probe")
-    with torch.cuda.device(xc.device):
+    with torch.cuda.device(xc.device), kernel_range("P3 bw_ring_read"):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.bw_ring_read_launch(
             xc.data_ptr(), out.data_ptr(),

@@ -40,6 +40,7 @@ from ..config import DspConfig
 from ..constants import PREAMBLE_PULSE_CHIPS, PREAMBLE_QUIET_CHIPS
 from ..dsp.pipeline import _f32, power_f32, resolve_device
 from ..kernels import preamble as K
+from ..utils.profiling import kernel_range
 from . import flush_buffer, host_ms, smi_line, time_ms
 
 C, TILE = 16, 16384
@@ -142,7 +143,7 @@ def launch_ablate(x: torch.Tensor, valid: int, cfg: DspConfig, stages: int,
             raise ValueError("ablation outputs of the wrong shape, type or "
                              "layout")
     lib = _ext.lib("detect_ablate")
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), kernel_range("P4 detect_ablate"):
         rc = lib.detect_ablate_launch(
             x.data_ptr(), mask.data_ptr(), ref.data_ptr(), Cn, L,
             min(int(valid), L), n, -(-n // K._CHUNK), int(stages), cfg.sps,
@@ -162,7 +163,8 @@ def detect_stage(x: torch.Tensor, valid: int, length: int, cfg: DspConfig,
     if stages not in STAGES:
         raise ValueError(f"stages must be one of {STAGES}, got {stages}")
     if x.device.type == "cpu":
-        return ablate_plain(x, valid, length, cfg, stages)
+        with kernel_range("P4 detect_ablate"):
+            return ablate_plain(x, valid, length, cfg, stages)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     x = x.contiguous()

@@ -40,6 +40,7 @@ from ..config import DspConfig
 from ..kernels import preamble as K
 from ..kernels.opcount import floor_probe_bytes
 from ..dsp.pipeline import resolve_device
+from ..utils.profiling import kernel_range
 from . import flush_buffer, host_ms, smi_line, time_ms
 
 C, TILE, NBUF = 64, 65536, 2
@@ -100,7 +101,8 @@ def step_floor(xi8: torch.Tensor, xq8: torch.Tensor, cfg: DspConfig,
     if xi8.device != xq8.device:
         raise ValueError("I and Q must be on one device")
     if xi8.device.type == "cpu":
-        return floor_plain(xi8, xq8, cfg, tile)
+        with kernel_range("P5 planar_floor"):
+            return floor_plain(xi8, xq8, cfg, tile)
     if xi8.device.type != "cuda":
         raise ValueError(f"unsupported device {xi8.device}")
     from ..kernels import _ext
@@ -113,7 +115,7 @@ def step_floor(xi8: torch.Tensor, xq8: torch.Tensor, cfg: DspConfig,
     out = torch.empty((channels * tiles * K.CAND_ROWS, 128),
                       dtype=torch.int32, device=xi8.device)
     lib = _ext.lib("planar_floor")
-    with torch.cuda.device(xi8.device):
+    with torch.cuda.device(xi8.device), kernel_range("P5 planar_floor"):
         rc = lib.planar_floor_launch(
             xi8.data_ptr(), xq8.data_ptr(), scratch.data_ptr(),
             out.data_ptr(), channels, p, tile, tiles, nchunk,

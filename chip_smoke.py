@@ -105,7 +105,27 @@ process per source, all at once), then:
      probe's readings (the planar stage split among them; P1-P3 beside
      `x + 1.0`, `torch.sum` and the windows' sums in one call, each in
      GB/s of its own bytes), failing any rate above 105% of 3.35 TB/s;
- 17. prints one JSON line of per-kernel numbers, the card line, and last
+ 17. checks that the port's profiler trace shows every hand-kernel launch
+     (fault C2): `modes_rx --int8 --profile` over phase 6's capture, each
+     kernel's device events equal to its wrapper's launch count (B1 two
+     kernels a call), each with its CPU launch, and a "B1 detect_cands" /
+     "B2 slice_windows" range per wrapper call; the same for B1 and B2
+     launched bare, with no torch kernel beside them and with one between,
+     and for the int8 step; 40 sessions of one int8 step, none losing a
+     device event of its work; at C = 64 blocks of 2^22, B1's summed
+     trace time within 5% of its card time behind a spin, and the step's
+     trace busy time beside its card time (the step profiles of phases 6,
+     7, 13 and 15 hold their kernels on every rep too);
+ 18. runs the entry points no other phase calls, each against the port's
+     CPU run: `golden.snr_sweep` at DspConfig() from 4 to 14 dB (200 DF17
+     messages a point; the same decoded set at each), printing the
+     waterfall; `multihost.scaling_report` over the (1, 1) ... (2, 4)
+     meshes after one (2, 4) step equal to the CPU's, printing each row;
+     `python -m airmodes_torch.dist.multihost --device cuda` (exit 0, the
+     card's name); `modes_gui --device cuda` headless on the synthetic
+     source and on a 4 Msps capture with -r 4e6, blocks of 2^20 (the CPU
+     run's aircraft rows), and its Qt backend where Qt imports;
+ 19. prints one JSON line of per-kernel numbers, the card line, and last
      {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero. Without a CUDA card, or without the
@@ -563,42 +583,147 @@ def phase_repeat_b34(cfg, b34_out, dev, iters, one_d=False):
           flush=True)
 
 
-def profile_step(fn, smi, reps=5):
-    """torch.profiler over `reps` device steps: the card's busy share of
-    the window, kernel launches per step, and the kernels that take the
-    most device time; returns the device-side rows (us over the reps,
-    count, name), empty if the profiler saw no device time."""
+# the device symbols of the hand kernels, as a profiler trace names them
+# ("void (anonymous namespace)::detect_chunk_kernel<false, true>(...)"): a
+# B1/B5 call launches a chunk and a merge kernel, every other wrapper one
+KERNEL_SYMBOLS = ("detect_chunk_kernel", "merge_unordered_kernel",
+                  "merge_ordered_kernel", "slice_windows_kernel",
+                  "detect_mask_kernel", "copy_kernel", "dma_read_kernel",
+                  "ring_read_kernel", "detect_ablate_kernel",
+                  "planar_floor_kernel")
+# what one unordered B1 call and one B2 call put on the card
+B1_B2_SYMBOLS = ("detect_chunk_kernel", "merge_unordered_kernel",
+                 "slice_windows_kernel")
+
+
+def trace_counts(trace):
+    """What a torch.profiler Chrome trace (a path, or its parsed JSON)
+    holds, the session's primer (`utils.profiling.PRIMER`: the kernels
+    launched inside that range) left out but for "primer_lost":
+
+      kernels, kernel_us, orphans: per symbol of KERNEL_SYMBOLS, its device
+          events, their summed us, and those whose correlation id no CPU
+          launch event (cuda_runtime, cuda_driver) carries;
+      by_name: {name: [count, summed us]} of every kernel, copy and memset;
+      device_events, busy_us: their number, the union of their intervals;
+      ranges: {name: host ranges (record_function, "B1 detect_cands")};
+      host_ops, host_threads: torch ops on the host, the threads they ran on;
+      lost, primer_lost: kernel launches on the host (any kernel's) with no
+          device event, outside and inside the primer;
+      lead_us: the most by which a device event starts before its CPU
+          launch on the trace's clock (the profiler's offset between the
+          card's clock and the host's; 0 where it maps none early)."""
+    import re
+    if not isinstance(trace, dict):
+        with open(trace) as f:
+            trace = json.load(f)
+    events = [e for e in trace.get("traceEvents", []) if e.get("ph") == "X"]
+    primers = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
+               for e in events if e.get("cat") == "user_annotation"
+               and e["name"] == "profiler primer"]
+    launched, primed = {}, set()
+    for e in events:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") \
+                and "correlation" in e.get("args", {}):
+            corr = e["args"]["correlation"]
+            launched[corr] = float(e["ts"])
+            if any(lo <= float(e["ts"]) <= hi for lo, hi in primers):
+                primed.add(corr)
+    every = [e for e in events
+             if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    recorded = {e.get("args", {}).get("correlation") for e in every}
+    device = [e for e in every
+              if e.get("args", {}).get("correlation") not in primed]
+    ops = [e for e in events if e.get("cat") == "cpu_op"]
+    out = {"kernels": dict.fromkeys(KERNEL_SYMBOLS, 0),
+           "kernel_us": dict.fromkeys(KERNEL_SYMBOLS, 0.0),
+           "orphans": dict.fromkeys(KERNEL_SYMBOLS, 0), "by_name": {},
+           "device_events": len(device), "ranges": {},
+           "host_ops": len(ops),
+           "host_threads": len({e.get("tid") for e in ops}),
+           "lost": 0, "primer_lost": 0}
+    for e in events:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") \
+                and "aunch" in e["name"] \
+                and e.get("args", {}).get("correlation") not in recorded:
+            out["primer_lost" if e["args"].get("correlation") in primed
+                else "lost"] += 1
+        elif e.get("cat") == "user_annotation":
+            out["ranges"][e["name"]] = out["ranges"].get(e["name"], 0) + 1
+    out["lead_us"] = max([0.0] + [
+        launched[e["args"]["correlation"]] - float(e["ts"]) for e in every
+        if e.get("args", {}).get("correlation") in launched])
+    for e in device:
+        row = out["by_name"].setdefault(e["name"], [0, 0.0])
+        row[0] += 1
+        row[1] += float(e.get("dur", 0.0))
+        for sym in KERNEL_SYMBOLS:
+            if e["cat"] == "kernel" and re.search(rf"(?:^|[\s:]){sym}\b",
+                                                  e["name"]):
+                out["kernels"][sym] += 1
+                out["kernel_us"][sym] += float(e.get("dur", 0.0))
+                if e.get("args", {}).get("correlation") not in launched:
+                    out["orphans"][sym] += 1
+    busy, end = 0.0, float("-inf")
+    for lo, hi in sorted((float(e["ts"]), float(e["ts"]) + float(
+            e.get("dur", 0.0))) for e in device):
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    out["busy_us"] = busy
+    return out
+
+
+def profile_window(fn, reps):
+    """The port's profiler (`utils.profiling.profiler`: host, every thread,
+    and the card) over `reps` calls of fn after one untimed call, ending in
+    a synchronise: (trace_counts of its Chrome trace, host wall us)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from airmodes_torch.utils.profiling import profiler
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiler() as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    from torch.autograd import DeviceType
-    rows = []      # device-side events only: kernels and copies
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            rows.append((dev_us, e.count, e.key))
-    busy = sum(r[0] for r in rows)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        return trace_counts(path), wall_us
+
+
+def profile_step(fn, smi, reps=5, expect=()):
+    """torch.profiler over `reps` device steps: the card's busy share of
+    the window, device ops per step, and the ones that take the most
+    device time; returns the device-side rows (us over the reps, count,
+    name), from the trace with the session's primer left out. Each symbol
+    of `expect` (KERNEL_SYMBOLS) must appear once per step, each with its
+    CPU launch, or it raises."""
+    counts, wall_us = profile_window(fn, reps)
+    rows = [(us, n, name) for name, (n, us) in counts["by_name"].items()]
+    print(f"profile: {counts['lost']} launches without a device event "
+          f"(the primer's: {counts['primer_lost']}); the card's clock mapped "
+          f"{counts['lead_us']:.1f} us early", flush=True)
+    for sym in expect:
+        print(f"profile: {sym} x{counts['kernels'][sym]} in the trace "
+              f"({counts['orphans'][sym]} without their CPU launch) over "
+              f"{reps} steps", flush=True)
+        if counts["kernels"][sym] != reps or counts["orphans"][sym]:
+            raise AssertionError(f"profile: {sym} not once per step with "
+                                 f"its launch (fault C2)")
     if not rows:
         print("profile: the profiler saw no device time (not measured)",
               flush=True)
         return rows
-    n_kern = sum(r[1] for r in rows) / reps
+    busy = sum(r[0] for r in rows)
     print(f"profile: {reps} device steps, wall {wall_us / reps:.1f} us per "
           f"step, device busy {busy / reps:.1f} us per step "
-          f"({100 * busy / wall_us:.1f}% of the window), {n_kern:.0f} device "
-          f"kernels and copies per step [{smi}]", flush=True)
+          f"({100 * busy / wall_us:.1f}% of the window; the union of the "
+          f"device intervals {counts['busy_us'] / reps:.1f} us), "
+          f"{counts['device_events'] / reps:.0f} device kernels and copies "
+          f"per step [{smi}]", flush=True)
     for dev_us, count, key in sorted(rows, reverse=True)[:12]:
         print(f"profile:   {dev_us / reps:9.1f} us/step  x{count // reps:<4d} "
               f"{key[:90]}", flush=True)
@@ -624,18 +749,12 @@ def decoded_per_df(msgs, truth):
     return dict(sorted(out.items()))
 
 
-def phase_main(cfg, dev, tmp, smi):
-    """The main path end to end; returns launch counts and rates."""
+def first_batch(cfg, path):
+    """The first BATCH blocks of a uc8 capture as the int8 runner frames
+    them: (BATCH, P) planar int8 I and Q (numpy)."""
     import numpy as np
-    import torch
-    from airmodes_torch.dsp.host import BlockStats
-    from airmodes_torch.io.native_stream import (_PlanarSource,
-                                                 run_native_pipelined)
+    from airmodes_torch.io.native_stream import _PlanarSource
     from airmodes_torch.kernels import preamble as K
-    path = os.path.join(tmp, "main.uc8")
-    truth = write_capture(cfg, path, N_MAIN_BLOCKS)
-
-    # the first batch as the runner frames it, on the card and on the CPU
     p = K.planar_length(cfg)
     src = _PlanarSource(cfg, p, path=path, fmt="uc8")
     xi = np.zeros((BATCH, p), np.int8)
@@ -646,6 +765,21 @@ def phase_main(cfg, dev, tmp, smi):
                 raise AssertionError("capture shorter than one batch")
     finally:
         src.close()
+    return xi, xq
+
+
+def phase_main(cfg, dev, tmp, smi):
+    """The main path end to end; returns launch counts and rates."""
+    import numpy as np
+    import torch
+    from airmodes_torch.dsp.host import BlockStats
+    from airmodes_torch.io.native_stream import run_native_pipelined
+    from airmodes_torch.kernels import preamble as K
+    path = os.path.join(tmp, "main.uc8")
+    truth = write_capture(cfg, path, N_MAIN_BLOCKS)
+
+    # the first batch as the runner frames it, on the card and on the CPU
+    xi, xq = first_batch(cfg, path)
     ti, tq = torch.from_numpy(xi).to(dev), torch.from_numpy(xq).to(dev)
     on_card = K.demod_batch_packed_planar(ti, tq, cfg, device=dev)
     on_card = on_card.cpu().numpy()
@@ -663,7 +797,8 @@ def phase_main(cfg, dev, tmp, smi):
                                                           device=dev),
                       device_only=False)
     profile_step(lambda: K.demod_batch_packed_planar(ti, tq, cfg,
-                                                     device=dev), smi)
+                                                     device=dev), smi,
+                 expect=B1_B2_SYMBOLS)
 
     stats = BlockStats()
     K.reset_launches()
@@ -781,7 +916,8 @@ def phase_main_f32(cfg, dev, tmp, smi):
                                                         device=dev),
                       device_only=False)
     profile_step(lambda: K.demod_batch_packed_fast(xt, cfg, tile=tile,
-                                                   device=dev), smi)
+                                                   device=dev), smi,
+                 expect=("detect_mask_kernel",))
     del xt
 
     stats = BlockStats()
@@ -1318,7 +1454,7 @@ def phase_resampled(cfg, dev, tmp, smi):
     step_ms = time_ms(lambda: RF.resample_demod_packed_planar(
         xd, None, cfg, p, q, device=dev), device_only=False)
     rows = profile_step(lambda: RF.resample_demod_packed_planar(
-        xd, None, cfg, p, q, device=dev), smi)
+        xd, None, cfg, p, q, device=dev), smi, expect=B1_B2_SYMBOLS)
     busy = sum(r[0] for r in rows)
     gemm = sum(r[0] for r in rows if "gemm" in r[2].lower())
     share = f"{100 * gemm / busy:.1f}%" if busy else "not measured"
@@ -1702,10 +1838,12 @@ def phase_sharded(cfg, dev, tmp, smi):
                                                           device=dev),
                       device_only=False)
     print("sharded: the profile of the sharded step", flush=True)
-    rows = [profile_step(lambda: pipe.step3_fn(*args), smi)]
+    rows = [profile_step(lambda: pipe.step3_fn(*args), smi,
+                         expect=B1_B2_SYMBOLS)]
     print("sharded: the profile of the unsharded 8-block step", flush=True)
     rows.append(profile_step(
-        lambda: K.demod_batch_packed_planar(bi, bq, cfg, device=dev), smi))
+        lambda: K.demod_batch_packed_planar(bi, bq, cfg, device=dev), smi,
+        expect=B1_B2_SYMBOLS))
     if all(rows):
         busy = [sum(r[0] for r in rs) / 5 for rs in rows]
         print(f"sharded: device busy {busy[0]:.1f} us per sharded step, "
@@ -2014,6 +2152,385 @@ def phase_probes(dev, smi, flush):
     return rows
 
 
+# --- phase 17: the profiler's view of the hand kernels (fault C2) -----------
+
+C2_REPS = 5                  # profiled calls per window
+C2_WINDOWS = 40              # one-step sessions that must each lose nothing
+
+
+def _bare_b1_b2(cfg, ti, tq, between):
+    """A function that launches B1 (unordered) and B2 straight from their
+    launch functions into buffers made once, so that no torch kernel runs
+    beside them; with `between`, a one-element add after each launch."""
+    import torch
+    from airmodes_torch.kernels import preamble as K
+    tile = K.default_tile(cfg)
+    s_shape, o_shape = K.detect_cands_buffers(ti.shape[0], cfg, tile)
+    scratch = torch.empty(s_shape, dtype=torch.int32, device=ti.device)
+    out = torch.empty(o_shape, dtype=torch.int32, device=ti.device)
+    K.launch_detect_cands(ti, tq, cfg, tile, scratch, out, ordered=False)
+    det, valid, _, _ = K.compact_candidates_unordered(out, cfg, tile)
+    base = b2_bases(cfg, ti, det, valid)
+    ri, rq = ti.reshape(-1, 128), tq.reshape(-1, 128)
+    w = torch.empty((base.numel(), K._slice_cols(cfg)), dtype=torch.float32,
+                    device=ti.device)
+    one = torch.zeros(1, device=ti.device)
+
+    def step():
+        K.launch_detect_cands(ti, tq, cfg, tile, scratch, out,
+                              ordered=False)
+        if between:
+            one.add_(1.0)
+        K.launch_slice_windows(ri, rq, base, cfg, w)
+        if between:
+            one.add_(1.0)
+    return step
+
+
+def _no_rows(counts):
+    """trace_counts without its per-name rows (a report's JSON)."""
+    return {k: v for k, v in counts.items() if k != "by_name"}
+
+
+def _cudart_maps():
+    """The libcudart files mapped into this process."""
+    with open("/proc/self/maps") as f:
+        return sorted({ln.split()[-1] for ln in f if "libcudart" in ln})
+
+
+def c2_report(cfg, dev, tmp, uc8, flush, windows=C2_WINDOWS):
+    """What the port's profiler shows of the hand kernels, as numbers (phase
+    17 holds them; trace_check.py prints them for any tree):
+
+      cudart: the libcudart files this process maps, and each kernel
+          library's libcudart line from `ldd` (none: a static runtime);
+      cli: `modes_rx --int8 --profile` over the uc8 capture, in-process:
+          the wrappers' launch counter deltas (B1, B2) and trace_counts of
+          the trace it wrote;
+      bare, bare+op: C2_REPS calls of _bare_b1_b2 without and with a torch
+          kernel between the launches: trace_counts;
+      step: C2_REPS int8 steps (`demod_batch_packed_planar`) on the
+          capture's first BATCH blocks: trace_counts;
+      windows: `windows` sessions of one such step each: their lost
+          launches, the card clock's lead and B1's device events;
+      big: at C = 64 blocks of 2^22 (the stage probe's input), for B1
+          ("k") and the whole step ("full"): the card time per call
+          (`time_ms`, behind a spin) and trace_counts of C2_REPS calls."""
+    import glob
+    import subprocess
+    import torch
+    from airmodes_torch.apps import modes_rx
+    from airmodes_torch.kernels import _ext
+    from airmodes_torch.kernels import preamble as K
+    from airmodes_torch.probes import unordered_stage_probe as US
+    rep = {"cudart": {"maps": _cudart_maps(), "ldd": {}}}
+    for name in _ext.SIGNATURES:
+        ldd = subprocess.run(["ldd", _ext._target(name)], capture_output=True,
+                             text=True, timeout=60).stdout
+        rep["cudart"]["ldd"][name] = [ln.strip() for ln in ldd.splitlines()
+                                      if "cudart" in ln]
+
+    logdir = os.path.join(tmp, "profile")
+    K.reset_launches()
+    rc = modes_rx.main(["-s", uc8, "--file-format", "uc8", "--int8", "-n",
+                        "--stats-interval", "0", "--block-size",
+                        str(cfg.block_size), "--device", str(dev),
+                        "--profile", logdir])
+    torch.cuda.synchronize()
+    traces = glob.glob(os.path.join(logdir, "trace_*.json"))
+    rep["cli"] = {"rc": rc, "launches": {
+        "B1": K.DETECT_CANDS_ROUTES["B1"],
+        "B2": K.LAUNCHES["slice_windows"]},
+        "traces": len(traces),
+        "trace": _no_rows(trace_counts(traces[0])) if traces else None}
+
+    xi, xq = first_batch(cfg, uc8)
+    ti, tq = torch.from_numpy(xi).to(dev), torch.from_numpy(xq).to(dev)
+    for key, between in (("bare", False), ("bare+op", True)):
+        rep[key] = _no_rows(profile_window(
+            _bare_b1_b2(cfg, ti, tq, between), C2_REPS)[0])
+    rep["step"] = _no_rows(profile_window(
+        lambda: K.demod_batch_packed_planar(ti, tq, cfg, device=dev),
+        C2_REPS)[0])
+    rep["windows"] = []
+    for _ in range(windows):
+        c = profile_window(lambda: K.demod_batch_packed_planar(
+            ti, tq, cfg, device=dev), 1)[0]
+        rep["windows"].append({k: c[k] for k in ("lost", "primer_lost",
+                                                 "lead_us")}
+                              | {"B1": c["kernels"]["detect_chunk_kernel"]})
+    del ti, tq
+
+    cfg5 = US.probe_config()
+    xi5, xq5 = US.make_input(cfg5, US.C, US.TILE, dev)
+    variants = US.variants(cfg5)
+    rep["big"] = {}
+    for name in ("k", "full"):
+        def fn(f=variants[name]):
+            return f(xi5, xq5)
+        rep["big"][name] = {"card_ms": time_ms(fn, flush=flush),
+                            "trace": _no_rows(profile_window(fn,
+                                                             C2_REPS)[0])}
+    del xi5, xq5
+    torch.cuda.empty_cache()
+    return rep
+
+
+def _per_call_ok(what, counts, want, ranges):
+    """Each symbol of `want` in `counts` (trace_counts) exactly as often as
+    `want` says, none without its CPU launch, and each range of `ranges`
+    as often as it says; prints the counts, raises on a miss."""
+    print(f"profile: {what}: device events "
+          f"{ {k: counts['kernels'][k] for k in want} }, without their CPU "
+          f"launch { {k: counts['orphans'][k] for k in want} }, ranges "
+          f"{ {k: counts['ranges'].get(k, 0) for k in ranges} } (wanted "
+          f"{want}, {ranges}); {counts['lost']} launches of any kernel "
+          f"without a device event (the primer's: {counts['primer_lost']}), "
+          f"the card's clock {counts['lead_us']:.1f} us early", flush=True)
+    for sym, n in want.items():
+        if counts["kernels"][sym] != n or counts["orphans"][sym]:
+            raise AssertionError(f"profile: {what}: {sym} x"
+                                 f"{counts['kernels'][sym]} in the trace "
+                                 f"({counts['orphans'][sym]} without their "
+                                 f"launch), launched {n} (fault C2)")
+    for name, n in ranges.items():
+        if counts["ranges"].get(name, 0) != n:
+            raise AssertionError(f"profile: {what}: range {name!r} x"
+                                 f"{counts['ranges'].get(name, 0)}, "
+                                 f"{n} wrapper calls")
+
+
+def phase_profile(cfg, dev, tmp, smi, uc8, flush):
+    """Phase 17: the port's profiler trace holds every hand-kernel launch
+    (fault C2). `modes_rx --int8 --profile` over phase 6's capture: each
+    kernel's device events equal its wrapper's launch-counter delta times
+    the kernels per call (B1: a chunk and a merge kernel; B2: one), each
+    with its CPU launch, and the "B1 detect_cands" and "B2 slice_windows"
+    ranges equal the wrapper calls; the same for B1 and B2 launched bare,
+    with no torch kernel beside them and with one between, and for the
+    int8 step; C2_WINDOWS sessions of one int8 step, none losing a device
+    event of its work; at C = 64 blocks of 2^22 B1's summed trace time
+    within 5% of its card time behind a spin, and the step's trace busy
+    time printed beside its card time. (The int8, f32, resampled and
+    sharded steps' profiles of phases 6, 7, 13 and 15 hold B1 and B2, or
+    B4, on every rep.)"""
+    from airmodes_torch.utils.profiling import SETTLE_S
+    t0 = time.perf_counter()
+    r = c2_report(cfg, dev, tmp, uc8, flush)
+    print(f"profile: libcudart mapped in this process: "
+          f"{r['cudart']['maps']}; each kernel library's ldd line: "
+          f"{r['cudart']['ldd']}", flush=True)
+    cli = r["cli"]
+    n1, n2 = cli["launches"]["B1"], cli["launches"]["B2"]
+    if cli["rc"] != 0 or cli["traces"] != 1 or n1 <= 0 or n2 <= 0:
+        raise AssertionError(f"profile: modes_rx --int8 --profile: exit "
+                             f"{cli['rc']}, {cli['traces']} traces, "
+                             f"launches {cli['launches']}")
+    _per_call_ok("modes_rx --int8 --profile", cli["trace"],
+                 {"detect_chunk_kernel": n1, "merge_unordered_kernel": n1,
+                  "slice_windows_kernel": n2},
+                 {"B1 detect_cands": n1, "B2 slice_windows": n2})
+    every = {sym: C2_REPS for sym in B1_B2_SYMBOLS}
+    for key in ("bare", "bare+op", "step"):
+        _per_call_ok(f"{key}, {C2_REPS} calls", r[key], every,
+                     {"B1 detect_cands": C2_REPS,
+                      "B2 slice_windows": C2_REPS})
+    lost = [w for w in r["windows"] if w["lost"] or w["B1"] != 1]
+    print(f"profile: {len(r['windows'])} one-step sessions: {len(lost)} "
+          f"lost a kernel's device event, "
+          f"{sum(1 for w in r['windows'] if w['primer_lost'])} their "
+          f"primer's; the card's clock mapped up to "
+          f"{max(w['lead_us'] for w in r['windows']):.1f} us early "
+          f"(each session opens {SETTLE_S * 1e3:.0f} ms before its work)",
+          flush=True)
+    if lost:
+        raise AssertionError(f"profile: sessions lost device events "
+                             f"(fault C2): {lost[:3]}")
+    k, full = r["big"]["k"], r["big"]["full"]
+    _per_call_ok("C = 64 x 2^22, B1", k["trace"],
+                 {"detect_chunk_kernel": C2_REPS,
+                  "merge_unordered_kernel": C2_REPS},
+                 {"B1 detect_cands": C2_REPS})
+    _per_call_ok("C = 64 x 2^22, the step", full["trace"], every,
+                 {"B1 detect_cands": C2_REPS, "B2 slice_windows": C2_REPS})
+    b1_ms = (k["trace"]["kernel_us"]["detect_chunk_kernel"]
+             + k["trace"]["kernel_us"]["merge_unordered_kernel"]) \
+        / C2_REPS / 1e3
+    print(f"profile: C = 64 x 2^22: B1 in the trace {b1_ms:.5f} ms per "
+          f"call, card time behind a spin {k['card_ms']:.5f} ms "
+          f"({100 * (b1_ms / k['card_ms'] - 1):+.2f}%); the step's trace "
+          f"busy {full['trace']['busy_us'] / C2_REPS / 1e3:.5f} ms per "
+          f"call ({full['trace']['device_events'] / C2_REPS:.0f} device "
+          f"events), card time {full['card_ms']:.5f} ms [{smi}]",
+          flush=True)
+    if abs(b1_ms / k["card_ms"] - 1) > 0.05:
+        raise AssertionError("profile: B1's trace time is not within 5% of "
+                             "its card time")
+    print(f"profile: phase 17 took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+# --- phase 18: the entry points no other phase calls -------------------------
+
+SNR_DB = range(4, 15)        # golden.snr_sweep points, dB
+SNR_MSGS = 200               # DF17 messages per point
+SCALING_MESHES = [(1, 1), (1, 2), (1, 4), (1, 8), (2, 4)]
+GUI_BLOCK = 1 << 20
+
+
+def _sweep_point(snr, cfg, device):
+    """golden.snr_sweep at one point (the sweep seeds each point by its
+    SNR, so a point alone is the same as within a sweep), and the set of
+    message hexes its tables decoded."""
+    from unittest import mock
+    from airmodes_torch.dsp import host
+    from airmodes_torch.testing import golden
+    got = set()
+    real = host.table_to_messages
+
+    def record(*a, **k):
+        msgs = real(*a, **k)
+        got.update(m.split()[1] for m in msgs)
+        return msgs
+    with mock.patch.object(host, "table_to_messages", record):
+        (point,) = golden.snr_sweep([float(snr)], n_msgs=SNR_MSGS, seed=0,
+                                    cfg=cfg, device=device)
+    return point, got
+
+
+def _gui_rows(argv):
+    """(exit code, the aircraft rows without their last-seen column) of one
+    headless `modes_gui.main` run: curses refuses, as it does where there
+    is no terminal, and the app prints its plain summary."""
+    import contextlib
+    import curses
+    import io
+    import re
+    from unittest import mock
+    from airmodes_torch.apps import modes_gui
+    out = io.StringIO()
+    with mock.patch.object(curses, "wrapper",
+                           side_effect=curses.error("no terminal")), \
+            contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        rc = modes_gui.main(list(argv) + ["--backend", "curses"])
+    rows = [ln.rsplit(" ", 1)[0] for ln in out.getvalue().splitlines()
+            if re.match(r"^[0-9a-f]{6} ", ln)]
+    return rc, rows
+
+
+def phase_entry_points(dev, tmp, smi):
+    """Phase 18: the entry points that default to the card and that no
+    other phase calls, each against the port's own CPU run (which the CPU
+    tests hold against the JAX package): `golden.snr_sweep` at
+    DspConfig() over SNR_DB (decoded sets equal at every point);
+    `multihost.scaling_report` over SCALING_MESHES after one (2, 4) f32
+    step equal to the CPU's; `python -m airmodes_torch.dist.multihost
+    --device cuda` (exit 0, the card's name); `modes_gui` headless on the
+    synthetic source and a 4 Msps capture with -r 4e6 (the CPU run's
+    aircraft rows), and its Qt backend where Qt imports."""
+    import subprocess
+    import numpy as np
+    import torch
+    from airmodes_torch.apps import modes_gui
+    from airmodes_torch.config import DspConfig
+    from airmodes_torch.dist.multihost import PodPipeline, scaling_report
+    from airmodes_torch.testing import encoder
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    cfg = DspConfig()
+    for snr in SNR_DB:
+        (pt, card), (pt_cpu, cpu) = (_sweep_point(snr, cfg, d)
+                                     for d in (dev, "cpu"))
+        if card != cpu or pt.decoded != pt_cpu.decoded:
+            raise AssertionError(f"snr_sweep at {snr} dB: the card decoded "
+                                 f"{pt.decoded}, the CPU {pt_cpu.decoded}; "
+                                 f"sets differ by {sorted(card ^ cpu)[:5]}")
+        print(f"snr_sweep: {snr:4.1f} dB {pt.decoded:4d}/{pt.injected} "
+              f"{'#' * round(40 * pt.rate):40s} (== the CPU's set) [{smi}]",
+              flush=True)
+
+    n_ch, n_t = SCALING_MESHES[-1]
+    pipes = [PodPipeline(cfg, n_channel=n_ch, n_time=n_t, planar=False,
+                         device=d) for d in (dev, "cpu")]
+    total = pipes[0].samples_per_step
+    iq, _ = encoder.make_capture(encoder.random_df17_frames(16, seed=0),
+                                 snr_db=18.0, spacing=total // 20, seed=0,
+                                 total_samples=total)
+    step = np.stack([np.stack([iq.real, iq.imag], -1)] * n_ch
+                    ).astype(np.float32)
+    card, cpu = (p.run_step(step, 0) for p in pipes)
+    if card != cpu or not card:
+        raise AssertionError(f"scaling: the ({n_ch}, {n_t}) step on the "
+                             f"card ({len(card)} messages) != the CPU's "
+                             f"({len(cpu)})")
+    print(f"scaling: the ({n_ch}, {n_t}) f32 step's {len(card)} messages "
+          f"== the CPU's", flush=True)
+    del pipes, step
+    for row in scaling_report(cfg, SCALING_MESHES, device=dev):
+        print(f"scaling: {json.dumps(row)} [{smi}]", flush=True)
+
+    out = subprocess.run([sys.executable, "-m",
+                          "airmodes_torch.dist.multihost", "--device",
+                          "cuda"], cwd=here, capture_output=True, text=True,
+                         timeout=600)
+    lines = out.stdout.splitlines()
+    name = json.loads(lines[0]).get("name") if lines else None
+    if out.returncode != 0 or name != torch.cuda.get_device_name(0):
+        raise AssertionError(f"python -m airmodes_torch.dist.multihost "
+                             f"--device cuda: exit {out.returncode}, "
+                             f"{out.stdout[-500:]} {out.stderr[-2000:]}")
+    for ln in lines:
+        print(f"multihost cli: {ln}", flush=True)
+
+    frames = encoder.random_df17_frames(6, seed=92)
+    iq, _ = encoder.make_capture(frames, rate=4e6, snr_db=25.0,
+                                 spacing=16000, seed=92)
+    path = os.path.join(tmp, "gui4m.c64")
+    iq.astype(np.complex64).tofile(path)
+    setups = {
+        "synthetic": ["--duration", "60", "--block-size", str(GUI_BLOCK),
+                      "--max-blocks", "2"],
+        "4 Msps capture, -r 4e6": ["-s", path, "-r", "4e6", "--duration",
+                                   "60", "--block-size", str(GUI_BLOCK)]}
+    for what, argv in setups.items():
+        (rc, rows), (rc_cpu, rows_cpu) = (
+            _gui_rows(argv + ["--device", str(d)]) for d in (dev, "cpu"))
+        if rc != 0 or rc_cpu != 0 or rows != rows_cpu or not rows:
+            raise AssertionError(f"modes_gui, {what}: exit {rc} (CPU "
+                                 f"{rc_cpu}), {len(rows)} rows != the "
+                                 f"CPU's {len(rows_cpu)}")
+        print(f"gui: {what}: exit 0, {len(rows)} aircraft rows == the CPU "
+              f"run's", flush=True)
+        for row in rows[:5]:
+            print(f"gui:   {row}", flush=True)
+    if modes_gui._qt_modules() is None:
+        print("gui: the Qt backend was not run: neither PyQt5 nor PySide6 "
+              "imports on this machine", flush=True)
+    else:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "airmodes_torch.apps.modes_gui",
+             *setups["4 Msps capture, -r 4e6"], "--backend", "qt",
+             "--device", "cuda"], cwd=here,
+            env=dict(os.environ, QT_QPA_PLATFORM="offscreen"),
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        try:
+            _, err = proc.communicate(timeout=20)
+            if proc.returncode != 0:
+                raise AssertionError(f"modes_gui --backend qt: exit "
+                                     f"{proc.returncode}: {err[-2000:]}")
+            print("gui: the Qt backend (offscreen) exited 0", flush=True)
+        except subprocess.TimeoutExpired:
+            print("gui: the Qt backend (offscreen) ran 20 s without an "
+                  "error", flush=True)
+        finally:
+            proc.kill()
+            proc.communicate()
+    print(f"entry points: phase 18 took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def _table_messages(table, cfg, full_scale):
     """Messages of a sharded (C, T) table (indices global in the step),
     sorted by time."""
@@ -2183,7 +2700,10 @@ def main() -> int:
                   rs_path, [os.path.join(tmp, "ch0.uc8"),
                             os.path.join(tmp, "ch1.uc8")])
         sh_launches = phase_sharded(cfg, dev, tmp, smi)
-    probe_rows = phase_probes(dev, smi, flush)
+        probe_rows = phase_probes(dev, smi, flush)
+        phase_profile(cfg, dev, tmp, smi, os.path.join(tmp, "main.uc8"),
+                      flush)
+        phase_entry_points(dev, tmp, smi)
 
     half = cfg.nms_chips * cfg.sps
     b1_ms, b1_plain, b1_bytes, b1_samples = b1_t
