@@ -260,8 +260,7 @@ class PodPipeline:
                     return _q(x, self.gain)
             else:
                 def conv(x):
-                    return (host_mod.quantize_i8_np(x.real, self.gain),
-                            host_mod.quantize_i8_np(x.imag, self.gain))
+                    return host_mod.quantize_planar_i8_np(x, self.gain)
 
             def ship(step):
                 return sharded.shard_input_planar(step[0], step[1],

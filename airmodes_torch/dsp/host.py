@@ -59,6 +59,11 @@ def quantize_i8_np(x: np.ndarray, gain: float) -> np.ndarray:
     return np.where(np.isnan(y), 0.0, y).astype(np.int8)
 
 
+def quantize_planar_i8_np(iq: np.ndarray, gain: float):
+    """Planar int8 (I, Q) view of quantize_i8_np for complex input."""
+    return quantize_i8_np(iq.real, gain), quantize_i8_np(iq.imag, gain)
+
+
 def _bits_to_int(bits: np.ndarray, nbits: int) -> int:
     # nbits is always byte-aligned (56/112); packbits is ~10x the Python
     # shift/or loop this replaced, on the per-message product hot path

@@ -125,7 +125,14 @@ process per source, all at once), then:
      card's name); `modes_gui --device cuda` headless on the synthetic
      source and on a 4 Msps capture with -r 4e6, blocks of 2^20 (the CPU
      run's aircraft rows), and its Qt backend where Qt imports;
- 19. prints one JSON line of per-kernel numbers, the card line, and last
+ 19. runs the bench's functions (`airmodes_torch.bench`) at reduced sizes:
+     the planar step over BENCH_C blocks of 2^22 (the decode accounting
+     equal to the CPU's), the device, streaming and h2d loops, sps 5, the
+     fused resample step, PodPipeline, the native framer, modes_rx end to
+     end and its multi-channel aggregate; each figure must pass its own
+     check, launch B1 and B2 where it runs the planar step, and decode
+     what the same call decodes on the CPU;
+ 20. prints one JSON line of per-kernel numbers, the card line, and last
      {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero. Without a CUDA card, or without the
@@ -2531,6 +2538,154 @@ def phase_entry_points(dev, tmp, smi):
           flush=True)
 
 
+BENCH_C = 4                  # phase 19: blocks of the bench capture
+BENCH_REPS = 2               # copies of it per device call
+BENCH_E2E_BLOCKS = 8
+BENCH_MC = (2, 4)            # multi-channel: channels, blocks each
+BENCH_SPS5_CHANNELS = 2
+BENCH_FUSED_CHANNELS = 4
+BENCH_POD = (1 << 22, 6)     # PodPipeline step samples, steps
+
+
+def phase_bench(dev, smi):
+    """Phase 19: the bench's functions (`airmodes_torch.bench`) on the
+    card at reduced sizes, each decoding figure beside the same call on
+    the CPU: the step's table and decode accounting over build_capture's
+    BENCH_C blocks of 2^22; the device loop (sum and whole table), the
+    streaming loop and the h2d control; sps 5; the fused resample step;
+    PodPipeline; the native framer, modes_rx end to end and its
+    multi-channel aggregate over uc8 captures. Every figure must pass its
+    check; the launch counts are set to 0 just before each call and read
+    just after: every figure that runs the planar step must launch B1 and
+    B2 on the card (its own count agreeing), the others and every CPU call
+    none; and each pair must decode the same. On
+    the CPU the fused step and PodPipeline take the f32 path (the bench
+    runs planar on a card only), whose rare spurious frames differ from
+    the planar path's: there the injected frames decoded must be equal."""
+    from airmodes_torch import bench as B
+    from airmodes_torch.config import DspConfig
+    from airmodes_torch.kernels import preamble as K
+    t0 = time.perf_counter()
+
+    def counted(run):
+        """run() with the launch counts set to 0 just before it; returns
+        its figure and the B1, B2 launches read just after."""
+        K.reset_launches()
+        out = run()
+        return out, {"B1": K.LAUNCHES["detect_cands"],
+                     "B2": K.LAUNCHES["slice_windows"]}
+
+    def show(name, card_run, cpu_run=None, injected_only=False):
+        fig, n = counted(card_run)
+        if not fig.ok:
+            raise AssertionError(f"bench {name}: its check failed")
+        if fig.launches != (n if fig.launches else {}) or \
+                (fig.launches and min(n.values()) <= 0) or \
+                (not fig.launches and any(n.values())):
+            raise AssertionError(f"bench {name}: B1/B2 launches {n} on the "
+                                 f"card, the figure's {fig.launches}")
+        lo, mid, hi = fig.spread
+        line = (f"bench: {name}: {fig.value:.1f} (runs {lo:.1f} .. {mid:.1f}"
+                f" .. {hi:.1f})")
+        if fig.launches:
+            line += f", B1 {n['B1']} launches, B2 {n['B2']}"
+        if cpu_run is not None:
+            cpu, n_cpu = counted(cpu_run)
+            if not cpu.ok or any(n_cpu.values()):
+                raise AssertionError(f"bench {name} on the CPU: ok "
+                                     f"{cpu.ok}, launches {n_cpu}")
+            card_got, cpu_got = fig.decoded, cpu.decoded
+            if injected_only:
+                card_got, cpu_got = card_got & fig.injected, \
+                    cpu_got & cpu.injected
+                line += (f", spurious {sorted(fig.decoded - fig.injected)} "
+                         f"(the CPU's f32 path "
+                         f"{sorted(cpu.decoded - cpu.injected)})")
+            if card_got != cpu_got or fig.injected != cpu.injected:
+                raise AssertionError(
+                    f"bench {name}: the card decoded {_count(card_got)}/"
+                    f"{_count(fig.injected)}, the CPU {_count(cpu_got)}/"
+                    f"{_count(cpu.injected)}")
+            line += (f", decoded {_count(card_got)}/{_count(fig.injected)} "
+                     f"== the CPU's")
+        print(f"{line} [{smi}]", flush=True)
+
+    cfg = DspConfig(block_size=B.BLOCK, max_detections=B.MAX_DETECTIONS)
+    xi, xq, truth = B.build_capture(cfg, BENCH_C)
+    (name, step, arr), warm = counted(lambda: B.pick_step(cfg, xi, xq,
+                                                          device=dev))
+    _, _, arr_cpu = B.pick_step(cfg, xi, xq, device="cpu")
+    acc, acc_cpu = (B.account(a, truth, cfg) for a in (arr, arr_cpu))
+    keys = ("got", "decoded_by_df", "spurious_by_status", "df17_missed")
+    if name != "cuda-planar-i8" or min(warm.values()) <= 0 or \
+            any(acc[k] != acc_cpu[k] for k in keys) or not acc["df_ok"] \
+            or acc["df17_missed"] > max(1, acc["df17_injected"] // 1000):
+        raise AssertionError(
+            f"bench step {name}: launches {warm}; card {acc['decoded_by_df']}"
+            f" {acc['spurious_by_status']}, CPU {acc_cpu['decoded_by_df']} "
+            f"{acc_cpu['spurious_by_status']}")
+    print(f"bench: the step ({name}, {BENCH_C} blocks of {cfg.block_size}): "
+          f"B1 {warm['B1']} launches, B2 {warm['B2']}; decoded "
+          f"{acc['decoded_by_df']}, spurious {acc['spurious_by_status']} == "
+          f"the CPU's", flush=True)
+
+    show("device Msps", lambda: B.bench_device(
+        step, cfg, xi, xq, arr, BENCH_REPS, n_runs=2, iters=3, device=dev))
+    show("device Msps, whole table back", lambda: B.bench_device(
+        step, cfg, xi, xq, arr, BENCH_REPS, n_runs=2, iters=3,
+        sync_sum=False, device=dev))
+    show("streaming Msps (host int8 -> card)", lambda: B.bench_streaming(
+        step, cfg, xi, xq, arr, iters=2, n_runs=2, device=dev))
+    show("h2d control Msps", lambda: B.h2d_control(
+        xi, xq, cfg.block_size, device=dev))
+    show("sps5 Msps",
+         lambda: B.bench_sps5(n_runs=2, channels=BENCH_SPS5_CHANNELS,
+                              reps=2, iters=2, device=dev),
+         lambda: B.bench_sps5(n_runs=1, channels=BENCH_SPS5_CHANNELS,
+                              reps=1, iters=1, device="cpu"))
+    show("fused resample+demod Msps",
+         lambda: B.bench_sharded_resample(channels=BENCH_FUSED_CHANNELS,
+                                          R=2, iters=2, n_runs=2,
+                                          device=dev),
+         lambda: B.bench_sharded_resample(channels=1, R=1, iters=1,
+                                          n_runs=1, device="cpu"),
+         injected_only=True)
+    pod_cfg = DspConfig(block_size=BENCH_POD[0], max_detections=1024)
+    show("podpipeline Msps",
+         lambda: B.bench_podpipeline(pod_cfg, n_steps=BENCH_POD[1],
+                                     device=dev),
+         lambda: B.bench_podpipeline(pod_cfg, n_steps=BENCH_POD[1],
+                                     device="cpu"),
+         injected_only=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bench.uc8")
+        icaos = B.write_uc8_capture(cfg, path, BENCH_E2E_BLOCKS)
+        show("host-only framer Msps", lambda: B.bench_host_only(
+            cfg, path, BENCH_E2E_BLOCKS, n_runs=2))
+        show("e2e modes_rx Msps",
+             lambda: B.bench_e2e(cfg, path, icaos,
+                                 n_blocks=BENCH_E2E_BLOCKS, n_runs=2,
+                                 device=dev),
+             lambda: B.bench_e2e(cfg, path, icaos,
+                                 n_blocks=BENCH_E2E_BLOCKS, n_runs=1,
+                                 device="cpu"))
+    n_ch, n_blk = BENCH_MC
+    show("e2e multichannel Msps",
+         lambda: B.bench_e2e_multichannel(cfg, n_channels=n_ch,
+                                          n_blocks=n_blk, n_runs=2,
+                                          device=dev),
+         lambda: B.bench_e2e_multichannel(cfg, n_channels=n_ch,
+                                          n_blocks=n_blk, n_runs=1,
+                                          device="cpu"))
+    print(f"bench: phase 19 took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def _count(x):
+    """The size of a figure's set of hexes (or ICAOs), or its count."""
+    return len(x) if isinstance(x, (set, frozenset)) else x
+
+
 def _table_messages(table, cfg, full_scale):
     """Messages of a sharded (C, T) table (indices global in the step),
     sorted by time."""
@@ -2704,6 +2859,7 @@ def main() -> int:
         phase_profile(cfg, dev, tmp, smi, os.path.join(tmp, "main.uc8"),
                       flush)
         phase_entry_points(dev, tmp, smi)
+        phase_bench(dev, smi)
 
     half = cfg.nms_chips * cfg.sps
     b1_ms, b1_plain, b1_bytes, b1_samples = b1_t

@@ -52,7 +52,8 @@ def test_every_module_is_found():
                  "airmodes_torch.dist.sharded",
                  "airmodes_torch.dist.multihost",
                  "airmodes_torch.testing.golden",
-                 "airmodes_torch.kernels.opcount"):
+                 "airmodes_torch.kernels.opcount",
+                 "airmodes_torch.bench"):
         assert want in names
 
 

@@ -142,6 +142,62 @@ def test_planar_stream_matches_f32_stream():
         assert want <= got, planar
 
 
+def test_quantize_planar_i8_np_matches_reference():
+    """The numpy planar quantizer of complex input against the reference's:
+    NaN to 0, +-Inf saturating to +-127, ties rounding half to even, on
+    complex64 input."""
+    from airmodes.dsp import host as jhost
+    from airmodes_torch.dsp import host as thost
+    nan, inf = np.nan, np.inf
+    special = np.array([complex(nan, 0.25), complex(inf, -inf),
+                        complex(-0.75, nan), complex(1.25, -1.75),
+                        complex(0.75, -0.25), complex(100.0, -100.0)],
+                       np.complex64)
+    rng = np.random.default_rng(5)
+    noise = (rng.normal(size=250) + 1j * rng.normal(size=250)) * 20.0
+    iq = np.concatenate([special, noise.astype(np.complex64)])
+    gain = 2.0                      # the specials' x * gain are exact ties
+    xi, xq = thost.quantize_planar_i8_np(iq, gain)
+    ri, rq = jhost.quantize_planar_i8_np(iq, gain)
+    assert xi.dtype == xq.dtype == np.int8
+    assert np.array_equal(xi, ri) and np.array_equal(xq, rq)
+    assert xi[:6].tolist() == [0, 127, -2, 2, 2, 127]
+    assert xq[:6].tolist() == [0, -127, 0, -4, 0, -127]
+
+
+def test_planar_stream_numpy_quantizer_matches_native(monkeypatch):
+    """Without the native runtime the planar stream quantizes with
+    `quantize_planar_i8_np`; it gives the native quantizer's messages."""
+    from airmodes_torch.dsp import host as thost
+    from airmodes_torch.io import native_stream
+    kw = dict(block_size=1 << 14, max_detections=32)
+    S = 2 * kw["block_size"]
+    iq, truth = encoder.make_capture(encoder.random_df17_frames(8, seed=93),
+                                     snr_db=20.0, spacing=S // 5, seed=93,
+                                     total_samples=S + 3000)
+    gain = 120.0 / float(np.abs(iq).max())
+    calls = []
+    numpy_q = thost.quantize_planar_i8_np
+
+    def counted(x, g):
+        calls.append(x.shape)
+        return numpy_q(x, g)
+
+    def run():
+        pipe = PodPipeline(DspConfig(**kw), n_channel=1, n_time=2,
+                           planar=True, gain=gain, device="cpu")
+        return [out for out in pipe.run_stream([iq[None, :]])]
+
+    monkeypatch.setattr(thost, "quantize_planar_i8_np", counted)
+    native = run()
+    assert calls == []
+    monkeypatch.setattr(native_stream, "native_available", lambda: False)
+    assert run() == native
+    assert calls and all(c == (1, S) for c in calls)
+    assert {t.hex for t in truth} <= {m.split()[1] for o in native
+                                      for m in o}
+
+
 def test_pod_stream_tail_longer_than_one_step():
     """An EOF tail spanning MORE than one full step drains step by step;
     messages fall in their owning step's sample range."""
