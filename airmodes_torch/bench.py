@@ -5,8 +5,11 @@ and the decode counts that gate it.
 
 The counterpart of the repository's `bench.py` (the JAX package's
 benchmark), with its functions, sizes, order of figures and gates. It runs
-the planar int8 step (kernels B1 and B2, the torch tail, the packed table)
-over a synthetic 2 Msps capture of mixed Mode S traffic at 15 dB,
+the planar int8 step (kernels B1 and B2, the torch tail, the packed table),
+as the reference runs its compiled program: one captured CUDA graph per
+call (`demod_batch_packed_planar_jit`; the device loops capture the step
+and its table's sum as one graph, over inputs kept in the graph's
+buffers), over a synthetic 2 Msps capture of mixed Mode S traffic at 15 dB,
 `DspConfig(block_size=1 << 22, max_detections=256)`, C = 16 blocks:
 
 - `value`: Msps with the input resident on the device, C * REPS blocks per
@@ -62,6 +65,7 @@ from .io.native_stream import _PlanarSource
 from .kernels import preamble as K
 from .kernels.opcount import PEAK_F32_INSTR_S, b1_ops_per_sample
 from .testing import encoder
+from .utils.graphs import graphed
 
 C = 16                 # blocks of the capture (one device row each)
 BLOCK = 1 << 22        # samples per block
@@ -149,14 +153,14 @@ def build_capture(cfg: DspConfig, n_blocks: int, msg_rate_hz: float = 100.0,
 
 
 def pick_step(cfg: DspConfig, xi, xq, device="cuda"):
-    """The planar step (B1, B2, the tail, the packed table) on `device`,
-    and its first call over the capture: returns (name, step, table), the
-    table (C, K+1, 9) int32 on the host. Nothing else is tried: a step
-    that fails raises."""
+    """The planar step (B1, B2, the tail, the packed table; a captured
+    graph on a card) on `device`, and its first call over the capture:
+    returns (name, step, table), the table (C, K+1, 9) int32 on the host.
+    Nothing else is tried: a step that fails raises."""
     dev = resolve_device(device)
 
     def step(a, b):
-        return K.demod_batch_packed_planar(a, b, cfg, device=dev)
+        return K.demod_batch_packed_planar_jit(a, b, cfg, device=dev)
 
     name = "cuda-planar-i8" if dev.type == "cuda" else "plain-planar-i8"
     out = step(xi, xq).cpu().numpy()
@@ -231,31 +235,44 @@ def _in_flight(call, check, n_runs: int, iters: int, samples: int,
     return runs, wrong
 
 
+def _compiled(step, with_sum: bool):
+    """step(a, b), and with_sum the sum of its table too, as one compiled
+    step (one graph on a card), as the reference jits `t, sum(t)` as one
+    program for its device loops."""
+    def device_step(a, b, device="cuda"):
+        t = step(a, b)
+        return (t, torch.sum(t)) if with_sum else t
+    return graphed(counters=K.LAUNCH_COUNTERS)(device_step)
+
+
 def bench_device(step, cfg: DspConfig, xi, xq, table, reps: int,
                  n_runs: int = 5, iters: int = 10, sync_sum: bool = True,
                  device="cuda") -> Figure:
-    """The step over the capture resident on the device, `reps` copies of
-    it per call, 2 calls in flight, `iters` calls per run. sync_sum reads
-    back the sum of each call's packed table (the whole table is computed;
-    4 bytes cross); otherwise the whole table comes back each call. The
-    check: every sum (every table) equals `reps` copies of `table`, the
-    step's table of one copy."""
+    """The step over the capture resident on the device (in the compiled
+    step's input buffers), `reps` copies of it per call, 2 calls in
+    flight, `iters` calls per run. sync_sum reads back the sum of each
+    call's packed table (the whole table is computed; 4 bytes cross);
+    otherwise the whole table comes back each call. The check: every sum
+    (every table) equals `reps` copies of `table`, the step's table of one
+    copy."""
     dev = resolve_device(device)
     di = torch.from_numpy(np.ascontiguousarray(xi)).to(dev).repeat(reps, 1)
     dq = torch.from_numpy(np.ascontiguousarray(xq)).to(dev).repeat(reps, 1)
     want_table = np.tile(table, (reps, 1, 1))
     want_sum = int(want_table.sum(dtype=np.int64))
+    compiled = _compiled(step, sync_sum)
+    before = _counts()
+    di, dq = compiled.static_inputs(di, dq, device=dev)
 
     def call():
-        t = step(di, dq)
-        return torch.sum(t) if sync_sum else t
+        out = compiled(di, dq, device=dev)
+        return out[1] if sync_sum else out
 
     def check(out):
         if sync_sum:
             return out.item() == want_sum
         return np.array_equal(out.cpu().numpy(), want_table)
 
-    before = _counts()
     ok = check(call())            # warm: the allocator sizes itself
     runs, wrong = _in_flight(call, check, n_runs, iters,
                              di.shape[0] * cfg.block_size, dev)
@@ -505,7 +522,8 @@ def bench_sps5(n_runs: int = 5, seed: int = 100, block_size: int = 1 << 22,
     capture_s = time.perf_counter() - t0
 
     before = _counts()
-    arr = K.demod_batch_packed_planar(xi, xq, cfg5, device=dev).cpu().numpy()
+    arr = K.demod_batch_packed_planar_jit(xi, xq, cfg5,
+                                          device=dev).cpu().numpy()
     got = set()
     for k in range(channels):
         for m in host.table_to_messages(unpack_table(arr[k]),
@@ -514,12 +532,14 @@ def bench_sps5(n_runs: int = 5, seed: int = 100, block_size: int = 1 << 22,
     ok = (len(want - got) <= max(1, len(want) // 1000)
           and len(got - want) <= max(1, len(want) // 100))
 
-    di = torch.from_numpy(xi).to(dev).repeat(reps, 1)
-    dq = torch.from_numpy(xq).to(dev).repeat(reps, 1)
+    compiled = _compiled(lambda a, b: K.demod_batch_packed_planar_jit(
+        a, b, cfg5, device=dev), True)
+    di, dq = compiled.static_inputs(
+        torch.from_numpy(xi).to(dev).repeat(reps, 1),
+        torch.from_numpy(xq).to(dev).repeat(reps, 1), device=dev)
 
     def call():
-        return torch.sum(K.demod_batch_packed_planar(di, dq, cfg5,
-                                                     device=dev))
+        return compiled(di, dq, device=dev)[1]
 
     first = call().item()
     runs, wrong = _in_flight(call, lambda o: o.item() == first, n_runs,
@@ -685,6 +705,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         from .probes import smi_line
         card = smi_line()
         build_s = _ext.build_all()
+        torch.cuda.reset_peak_memory_stats(dev)
     capture_s = {}
 
     cfg = DspConfig(block_size=BLOCK, max_detections=MAX_DETECTIONS)
@@ -840,6 +861,10 @@ def main(argv: Optional[List[str]] = None) -> int:
          f"by_status={acc['spurious_by_status']} "
          f"by_df={acc['decoded_by_df']} launches={launches} "
          f"failed={[k for k, v in gates.items() if not v]}")
+    if dev.type == "cuda":
+        _say(f"peak device memory {torch.cuda.max_memory_allocated(dev)} "
+             f"bytes (every graph's pool and input buffers included) "
+             f"[{card}]")
     print(json.dumps(result))
     return 0 if ok else 1
 

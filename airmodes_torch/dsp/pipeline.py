@@ -48,6 +48,7 @@ from ..constants import (
     STATUS_CRC_OK,
     STATUS_FAIL,
 )
+from ..utils.graphs import graphed
 
 
 class DetectionTable(NamedTuple):
@@ -173,13 +174,27 @@ def magnitude_squared(iq: torch.Tensor) -> torch.Tensor:
     return power_f32(iq[..., 0], iq[..., 1])
 
 
+def _row_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """torch.cumsum along the last axis, each row summed in one fixed
+    order. On a card a tensor that is a single row takes CUB's device-wide
+    scan, whose float sums follow the timing of its look-back across
+    blocks (two runs on one input differ in the last bits); stacked over
+    a zero row it takes the row scan a batch takes: the same values each
+    run, and the values that row gets inside a batch."""
+    if x.is_cuda and x.numel() == x.shape[-1]:
+        row = x.reshape(1, -1)
+        both = torch.cat([row, torch.zeros_like(row)])
+        return torch.cumsum(both, dim=-1)[0].reshape(x.shape)
+    return torch.cumsum(x, dim=-1)
+
+
 def noise_floor(mag2: torch.Tensor, window: int) -> torch.Tensor:
     """Trailing moving average: noise[i] = mean(mag2[i-window:i]) along
     the last axis; the first `window` samples reuse the first full
     window's value. The reference's mean-centered cumsum difference: the
     centering keeps the f32 running sum near zero."""
     mu = mag2.mean(dim=-1, keepdim=True)
-    cs = torch.cumsum(mag2 - mu, dim=-1)
+    cs = _row_cumsum(mag2 - mu)
     cspad = torch.nn.functional.pad(cs, (1, 0))
     sums = cspad[..., window:] - cspad[..., :-window] + window * mu
     avg = sums * (1.0 / window)
@@ -360,6 +375,38 @@ def demod_batch(iq, cfg: DspConfig, device="cuda") -> DetectionTable:
 def demod_batch_packed(iq, cfg: DspConfig, device="cuda") -> torch.Tensor:
     """demod_batch + pack_table: (C, L+N+R, 2) -> (C, K+1, 9) int32."""
     return pack_table(demod_batch(iq, cfg, device=device))
+
+
+# the full-block path's compiled steps: each a captured graph per key on a
+# card (utils.graphs), the function itself on the CPU
+
+@graphed(static_argnames=("cfg",))
+def demod_block_jit(iq, cfg: DspConfig, device="cuda") -> DetectionTable:
+    """demod_block on `device`: one block -> a DetectionTable (of tensors
+    no later call overwrites)."""
+    return demod_block(_to_device(iq, resolve_device(device)), cfg)
+
+
+@graphed(static_argnames=("cfg",))
+def demod_block_packed_jit(iq, cfg: DspConfig,
+                           device="cuda") -> torch.Tensor:
+    """demod_block_packed as a captured graph on a card."""
+    return demod_block_packed(iq, cfg, device=device)
+
+
+@graphed(static_argnames=("cfg",))
+def demod_batch_jit(iq, cfg: DspConfig, device="cuda") -> DetectionTable:
+    """demod_batch as a captured graph on a card: (C, L+N+R, 2) -> a
+    DetectionTable with leading C."""
+    return demod_batch(iq, cfg, device=device)
+
+
+@graphed(static_argnames=("cfg",))
+def demod_batch_packed_jit(iq, cfg: DspConfig,
+                           device="cuda") -> torch.Tensor:
+    """demod_batch_packed as a captured graph on a card: the runners'
+    step for configs outside the kernels' gates."""
+    return demod_batch_packed(iq, cfg, device=device)
 
 
 @functools.lru_cache(maxsize=None)

@@ -11,12 +11,13 @@ call per time step down the channel axis):
   (`scale`) and splits planar I/Q,
   on a FEEDER thread (a thread pool across channels), into page-locked
   host buffers when the target is a card;
-- a DISPATCH thread copies each batch to the device (non-blocking) and
-  launches `demod_batch_packed_planar` (kernels B1 and B2 and the torch
-  tail), with a bounded number of batches in flight. A config outside
-  the planar gate (sps > 9, a noise window other than 128, a block that
-  is not a multiple of 4096) takes the full-block path on the same rows,
-  as the reference does;
+- a DISPATCH thread copies each batch into the device step's input
+  buffers (non-blocking) and replays `demod_batch_packed_planar_jit`, the
+  captured graph of kernels B1 and B2 and the torch tail, with a bounded
+  number of batches in flight. A config outside the planar gate (sps > 9,
+  a noise window other than 128, a block that is not a multiple of 4096)
+  takes the full-block path on the same rows, graphed the same way, as
+  the reference does;
 - the caller's thread does one `.cpu()` of the packed (C, K+1, 9) table per
   batch, then `unpack_table` and `table_to_messages`.
 
@@ -40,8 +41,14 @@ from ..config import DspConfig
 from ..dsp import host as host_mod
 from ..dsp.pipeline import (_to_device, demod_batch_packed, resolve_device,
                             unpack_table)
-from ..kernels.preamble import (demod_batch_packed_planar, planar_length,
+from ..kernels.preamble import (demod_batch_packed_planar_jit, planar_length,
                                 supported_planar_tile)
+from ..utils.graphs import graphed
+
+# The kernels rescale int8 by 1/127: a row quantized as round(f32 * scale)
+# has full scale scale/I8_SCALE (1.0 at scale = I8_SCALE), an AGC row
+# gain/I8_SCALE
+I8_SCALE = 127.0
 
 
 def native_available() -> bool:
@@ -53,26 +60,32 @@ def native_available() -> bool:
         return False
 
 
+@graphed(static_argnames=("cfg",))
+def _full_block_rows(xi, xq, cfg: DspConfig, device="cuda"):
+    """The step outside the planar gate: the (B, T) prefixes of the planar
+    rows (T = L+N+R) stacked to (B, T, 2) int8 and run through the
+    full-block path, in one captured graph on a card."""
+    dev = resolve_device(device)
+    T = cfg.left_halo + cfg.block_size + cfg.right_halo
+    xb = torch.stack([_to_device(xi, dev)[:, :T],
+                      _to_device(xq, dev)[:, :T]], dim=-1)
+    return demod_batch_packed(xb, cfg, device=dev)
+
+
 def _planar_step(cfg: DspConfig, device):
     """(step(xi, xq) -> packed (B, K+1, 9) on the device, planar length P).
     Inside the planar gate: the planar path (kernels B1 and B2). Outside
     it: rows of T = L+N+R samples rounded up to whole 128-sample lines,
-    stacked to (B, T, 2) int8 on the device and run through the
-    full-block path, as the reference's fallback does."""
+    through the full-block path, as the reference's fallback does. Both
+    are compiled steps (captured graphs on a card)."""
     dev = resolve_device(device)
     if supported_planar_tile(cfg) is not None:
-        return (lambda xi, xq: demod_batch_packed_planar(xi, xq, cfg,
-                                                         device=dev),
+        return (lambda xi, xq: demod_batch_packed_planar_jit(xi, xq, cfg,
+                                                             device=dev),
                 planar_length(cfg))
     T = cfg.left_halo + cfg.block_size + cfg.right_halo
-    P = -(-T // 128) * 128
-
-    def step(xi, xq):
-        xb = torch.stack([_to_device(xi, dev)[:, :T],
-                          _to_device(xq, dev)[:, :T]], dim=-1)
-        return demod_batch_packed(xb, cfg, device=dev)
-
-    return step, P
+    return (lambda xi, xq: _full_block_rows(xi, xq, cfg, device=dev),
+            -(-T // 128) * 128)
 
 
 class _PlanarSource:
@@ -120,12 +133,12 @@ class _PlanarSource:
             if nxt is None:
                 return None
             start, gain = nxt
-            return start, gain / 127.0
+            return start, gain / I8_SCALE
         nxt = self.stream.next_block_planar_i8(out_i, out_q, scale=scale,
                                                stop=stop)
         if nxt is None:
             return None
-        return nxt, scale / 127.0
+        return nxt, scale / I8_SCALE
 
     def close(self) -> None:
         self.stream.close()

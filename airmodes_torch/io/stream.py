@@ -20,11 +20,14 @@ of those names) frames raw-rate windows of a capture and runs one fused
 device step per batch: group-matmul resample, device AGC and int8 quantize,
 the planar demod (kernels B1 and B2), as `resample.fused` sets out.
 
-A host batch goes over in a page-locked buffer when the target is a card:
-the runners stack each batch straight into one, and an entry holds its
-buffer until it is drained, so nothing is refilled in flight. The step
-itself never waits on the card; packed tables stay there until the drain
-fetches them, one `.cpu()` per entry, in order.
+Each device step is a compiled step (a `*_jit` entry point: one captured
+CUDA graph per shape on a card, `utils.graphs`), as the reference's runners
+call jitted programs. A host batch goes over in a page-locked buffer when
+the target is a card, copied straight into the step's input buffer: the
+runners stack each batch into one, and an entry holds its buffer until it
+is drained, so nothing is refilled in flight. The step itself never waits
+on the card; packed tables stay there until the drain fetches them, one
+`.cpu()` per entry, in order.
 """
 
 from __future__ import annotations
@@ -38,34 +41,33 @@ import torch
 
 from ..config import DspConfig
 from ..dsp import host as host_mod
-from ..resample.fused import raw_geometry, resample_demod_packed_planar
+from ..resample.fused import raw_geometry, resample_demod_packed_planar_jit
 from ..resample.polyphase import rational_rate
 from . import sources as src_mod
-from ..dsp.pipeline import (demod_batch_packed, demod_block_packed,
+from ..dsp.pipeline import (demod_batch_packed_jit, demod_block_packed_jit,
                             iq_to_device_layout, resolve_device,
                             unpack_table)
-from ..kernels.preamble import (demod_batch_packed_fast,
-                                demod_batch_packed_planar,
-                                demod_block_packed_fast, supported_2d_tile,
-                                supported_planar_tile, to_planar_i8)
+from ..kernels.preamble import (demod_batch_packed_fast_jit,
+                                demod_batch_packed_planar_jit,
+                                demod_block_packed_fast_jit,
+                                supported_2d_tile, supported_planar_tile,
+                                to_planar_i8)
 
 
-def _to_card(x: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """One host array on `dev`: through a page-locked buffer to a card
-    (staged into one unless `x` already lies in one), as it is to the
-    CPU."""
+def _host(x: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """One host array as a tensor, in a page-locked buffer when it goes to
+    a card (staged into one unless `x` already lies in one), so the
+    step's copy to its input buffer does not block."""
     t = torch.from_numpy(np.ascontiguousarray(x))
-    if dev.type != "cuda":
-        return t
-    if not t.is_pinned():
+    if dev.type == "cuda" and not t.is_pinned():
         t = t.pin_memory()
-    return t.to(dev, non_blocking=True)
+    return t
 
 
 def _stack_host(parts: List[np.ndarray], pinned: bool):
     """(batch, owner): the host arrays stacked down a new leading axis,
-    into page-locked memory when the batch goes to a card, so `_to_card`
-    copies it over with no staging copy. `owner` is the tensor that owns
+    into page-locked memory when the batch goes to a card, so `_host`
+    hands it over with no staging copy. `owner` is the tensor that owns
     that memory (None for a plain numpy stack); the runner holds it until
     the entry is drained, when its copy has long finished."""
     if not pinned:
@@ -84,10 +86,10 @@ def _default_step(cfg: DspConfig, device="cuda"):
     dev = resolve_device(device)
     tile = supported_2d_tile(cfg)
     if tile is not None:
-        return lambda x, cfg: demod_block_packed_fast(_to_card(x, dev), cfg,
-                                                      tile=tile, device=dev)
-    return lambda x, cfg: demod_block_packed(_to_card(x, dev), cfg,
-                                             device=dev)
+        return lambda x, cfg: demod_block_packed_fast_jit(
+            _host(x, dev), cfg, tile=tile, device=dev)
+    return lambda x, cfg: demod_block_packed_jit(_host(x, dev), cfg,
+                                                 device=dev)
 
 
 def _batch_step(cfg: DspConfig, device="cuda"):
@@ -97,7 +99,7 @@ def _batch_step(cfg: DspConfig, device="cuda"):
     dev = resolve_device(device)
 
     def xla(xb, cfg):
-        return demod_batch_packed(_to_card(xb, dev), cfg, device=dev)
+        return demod_batch_packed_jit(_host(xb, dev), cfg, device=dev)
 
     if supported_planar_tile(cfg) is None:
         return xla
@@ -108,12 +110,12 @@ def _batch_step(cfg: DspConfig, device="cuda"):
             # planar split on the host, overlapped with the card's work
             # by the in-flight window
             xi, xq = to_planar_i8(xb, cfg)
-            return demod_batch_packed_planar(_to_card(xi, dev),
-                                             _to_card(xq, dev), cfg,
-                                             device=dev)
+            return demod_batch_packed_planar_jit(_host(xi, dev),
+                                                 _host(xq, dev), cfg,
+                                                 device=dev)
         if f32_tile is not None:
-            return demod_batch_packed_fast(_to_card(xb, dev), cfg,
-                                           tile=f32_tile, device=dev)
+            return demod_batch_packed_fast_jit(_host(xb, dev), cfg,
+                                               tile=f32_tile, device=dev)
         return xla(xb, cfg)
     return step
 
@@ -424,8 +426,8 @@ def run_resampled_fused(
         n_real = len(acc)
         x = _stack_planar([w for w, _ in acc]
                           + [acc[-1][0]] * (batch - n_real), pinned)
-        out = resample_demod_packed_planar(x, gain, cfg, p_up, q_dn,
-                                           device=dev)
+        out = resample_demod_packed_planar_jit(x, gain, cfg, p_up, q_dn,
+                                               device=dev)
         # raw start k*raw_block -> channel-rate start + k*block
         return (out, [start + s * p_up // q_dn for _, s in acc], n_real, x)
 
@@ -481,8 +483,8 @@ def run_resampled_fused_channels(
                           pinned)
         starts = [start + (items[c][1] * p_up // q_dn if live[c] else 0)
                   for c in range(C)]
-        out = resample_demod_packed_planar(x, gain, cfg, p_up, q_dn,
-                                           device=dev)
+        out = resample_demod_packed_planar_jit(x, gain, cfg, p_up, q_dn,
+                                               device=dev)
         inflight.append(((out, starts, C, x), live))
         if len(inflight) > depth:
             yield drain_one()

@@ -70,6 +70,7 @@ from ..config import DspConfig
 from ..constants import PREAMBLE_PULSE_CHIPS, PREAMBLE_QUIET_CHIPS
 from ..dsp import pipeline as P
 from ..dsp.pipeline import _f32, fma_f32, power_f32, resolve_device
+from ..utils.graphs import graphed
 from ..utils.profiling import kernel_range
 
 _LOOKBACK = 256                            # noise window + peak/NMS lookback
@@ -91,6 +92,8 @@ DETECT_CANDS_ROUTES = {"B1": 0, "B5o": 0, "B5p": 0}
 # detect_mask launches by route: B3 (one block), B4 (a batch of C > 1), and
 # the 1-D kernel B6 on one block ("B6") or a batch ("B6 batch")
 DETECT_MASK_ROUTES = {"B3": 0, "B4": 0, "B6": 0, "B6 batch": 0}
+# what a graphed step's replays add to (utils.graphs)
+LAUNCH_COUNTERS = (LAUNCHES, DETECT_CANDS_ROUTES, DETECT_MASK_ROUTES)
 
 
 def reset_launches() -> None:
@@ -868,6 +871,26 @@ def demod_batch_packed_planar(xi8, xq8, cfg: DspConfig, tile: int = None,
         xla_gather=xla_gather, prescreen=prescreen, k2=k2))
 
 
+@graphed(static_argnames=("cfg", "tile", "double_buffer", "nbuf",
+                         "per_tile", "per_lane", "ordered", "xla_gather",
+                         "prescreen", "k2"), counters=LAUNCH_COUNTERS)
+def demod_batch_packed_planar_jit(xi8, xq8, cfg: DspConfig, tile: int = None,
+                                  double_buffer: bool = False,
+                                  nbuf: int = DEFAULT_NBUF,
+                                  per_tile: int = None, per_lane: int = None,
+                                  ordered: bool = False,
+                                  xla_gather: bool = False,
+                                  prescreen: bool = False, k2: int = None,
+                                  device="cuda") -> torch.Tensor:
+    """`demod_batch_packed_planar` as one captured graph per key on a card
+    (`utils.graphs`), the reference's compiled int8 step: (C, P) int8 x2
+    -> (C, K+1, 9) int32, the options static."""
+    return demod_batch_packed_planar(
+        xi8, xq8, cfg, tile=tile, nbuf=nbuf, device=device,
+        double_buffer=double_buffer, per_tile=per_tile, per_lane=per_lane,
+        ordered=ordered, xla_gather=xla_gather, prescreen=prescreen, k2=k2)
+
+
 # --- the f32 front: kernels B3 and B4 ----------------------------------------
 #
 # The counterpart of the 2D f32 half of preamble_pallas.py. B3
@@ -1123,6 +1146,20 @@ def demod_batch_packed_fast(iq, cfg: DspConfig, tile: int = 16384,
     return P.pack_table(demod_batch_fast(x, cfg, tile=tile))
 
 
+@graphed(static_argnames=("cfg", "tile"), counters=LAUNCH_COUNTERS)
+def demod_block_packed_fast_jit(iq, cfg: DspConfig, tile: int = 16384,
+                                device="cuda") -> torch.Tensor:
+    """`demod_block_packed_fast` (B3) as a captured graph on a card."""
+    return demod_block_packed_fast(iq, cfg, tile=tile, device=device)
+
+
+@graphed(static_argnames=("cfg", "tile"), counters=LAUNCH_COUNTERS)
+def demod_batch_packed_fast_jit(iq, cfg: DspConfig, tile: int = 16384,
+                                device="cuda") -> torch.Tensor:
+    """`demod_batch_packed_fast` (B4) as a captured graph on a card."""
+    return demod_batch_packed_fast(iq, cfg, tile=tile, device=device)
+
+
 # --- the 1-D f32 front: kernel B6, and its full-block tail ------------------
 #
 # The counterpart of the reference's v1 entry points: `preamble_detect_pallas`
@@ -1245,14 +1282,33 @@ def demod_batch_packed_1d(iq, cfg: DspConfig, tile: int = 16384,
     return P.pack_table(demod_batch_1d(x, cfg, tile=tile))
 
 
+@graphed(static_argnames=("cfg", "tile"), counters=LAUNCH_COUNTERS)
+def demod_block_packed_1d_jit(iq, cfg: DspConfig, tile: int = 16384,
+                              device="cuda") -> torch.Tensor:
+    """`demod_block_packed_1d` (B6) as a captured graph on a card; the
+    reference's `demod_block_packed_pallas_jit`."""
+    return demod_block_packed_1d(iq, cfg, tile=tile, device=device)
+
+
+@graphed(static_argnames=("cfg", "tile"), counters=LAUNCH_COUNTERS)
+def demod_batch_packed_1d_jit(iq, cfg: DspConfig, tile: int = 16384,
+                              device="cuda") -> torch.Tensor:
+    """`demod_batch_packed_1d` (B6) as a captured graph on a card; the
+    reference's `demod_batch_packed_pallas_jit`."""
+    return demod_batch_packed_1d(iq, cfg, tile=tile, device=device)
+
+
 __all__ = [
     "CAND_ROWS", "DEFAULT_NBUF", "DETECT_CANDS_ROUTES", "DETECT_MASK_ROUTES",
-    "LAUNCHES", "b3_operands", "b4_operands", "b6_operands",
+    "LAUNCHES", "LAUNCH_COUNTERS", "b3_operands", "b4_operands", "b6_operands",
     "cand_capacity", "compact_candidates", "compact_candidates_unordered",
     "default_tile", "demod_batch_1d", "demod_batch_fast",
-    "demod_batch_packed_1d", "demod_batch_packed_fast",
-    "demod_batch_packed_planar", "demod_batch_planar", "demod_block_1d",
-    "demod_block_fast", "demod_block_packed_1d", "demod_block_packed_fast",
+    "demod_batch_packed_1d", "demod_batch_packed_1d_jit",
+    "demod_batch_packed_fast", "demod_batch_packed_fast_jit",
+    "demod_batch_packed_planar", "demod_batch_packed_planar_jit",
+    "demod_batch_planar", "demod_block_1d", "demod_block_fast",
+    "demod_block_packed_1d", "demod_block_packed_1d_jit",
+    "demod_block_packed_fast", "demod_block_packed_fast_jit",
     "detect_cands_buffers", "detect_cands_plain", "detect_mask_plain",
     "gather_tail", "gather_tail_planar", "launch_detect_cands",
     "launch_detect_mask", "launch_slice_windows", "planar_length",

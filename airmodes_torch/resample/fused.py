@@ -20,6 +20,8 @@ import torch.nn.functional as F
 
 from ..config import DspConfig
 from ..dsp.pipeline import pack_table, resolve_device
+from ..kernels.preamble import LAUNCH_COUNTERS
+from ..utils.graphs import graphed
 from .polyphase import _GROUP_PQ_CAP, resample_groups_halo
 
 
@@ -141,3 +143,18 @@ def resample_demod_packed_planar(iq_raw, gain, cfg: DspConfig, p: int, q: int,
         x.to(dev, non_blocking=True), gain, cfg, p, q,
         taps_per_phase=taps_per_phase, tile=tile)
     return pack_table(table), gains
+
+
+@graphed(static_argnames=("cfg", "p", "q", "taps_per_phase", "tile"),
+         counters=LAUNCH_COUNTERS)
+def resample_demod_packed_planar_jit(iq_raw, gain, cfg: DspConfig, p: int,
+                                     q: int, taps_per_phase: int = 12,
+                                     tile: int = None, device="cuda"):
+    """`resample_demod_packed_planar` as one captured graph per key on a
+    card (`utils.graphs`), the reference's compiled fused step: planar
+    (C, 2, W) f32 raw, and a gain (a number or a (C,) array, an input of
+    the graph) or None (the device AGC, inside the graph) -> ((C, K+1, 9)
+    int32, (C,) f32 gains)."""
+    return resample_demod_packed_planar(iq_raw, gain, cfg, p, q,
+                                        taps_per_phase=taps_per_phase,
+                                        tile=tile, device=device)

@@ -180,10 +180,10 @@ def snr_sweep(snrs: Sequence[float], n_msgs: int = 40, seed: int = 0,
               cfg: Optional[DspConfig] = None,
               device="cuda") -> List[SweepPoint]:
     """Decode rate vs SNR through the port's full-block pipeline
-    (`demod_block`) on `device`: the card unless the caller asks for the
-    CPU."""
+    (`demod_block_jit`, a captured graph per call on a card) on `device`:
+    the card unless the caller asks for the CPU."""
     from ..dsp import host
-    from ..dsp.pipeline import demod_block_packed, unpack_table
+    from ..dsp.pipeline import DetectionTable, demod_block_jit
     from ..io import sources
     cfg = cfg or DspConfig(block_size=1 << 16, max_detections=64)
     points = []
@@ -200,8 +200,9 @@ def snr_sweep(snrs: Sequence[float], n_msgs: int = 40, seed: int = 0,
                                          seed=seed + int(snr * 10) + 1200)
         got = set()
         for block, start in sources.frame_blocks(iq, cfg):
-            table = unpack_table(
-                demod_block_packed(block, cfg, device=device).cpu())
+            table = DetectionTable(*(
+                f.cpu().numpy()
+                for f in demod_block_jit(block, cfg, device=device)))
             got |= {m.split()[1] for m in host.table_to_messages(
                 table, start, cfg.channel_rate)}
         decoded = sum(1 for t in truth if t.hex in got)

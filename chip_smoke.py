@@ -106,12 +106,14 @@ process per source, all at once), then:
      `x + 1.0`, `torch.sum` and the windows' sums in one call, each in
      GB/s of its own bytes), failing any rate above 105% of 3.35 TB/s;
  17. checks that the port's profiler trace shows every hand-kernel launch
-     (fault C2): `modes_rx --int8 --profile` over phase 6's capture, each
-     kernel's device events equal to its wrapper's launch count (B1 two
-     kernels a call), each with its CPU launch, and a "B1 detect_cands" /
-     "B2 slice_windows" range per wrapper call; the same for B1 and B2
-     launched bare, with no torch kernel beside them and with one between,
-     and for the int8 step; 40 sessions of one int8 step, none losing a
+     (fault C2): `modes_rx --int8 --profile` over phase 6's capture (its
+     runner replays the compiled step), each kernel's device events equal
+     to its wrapper's launch count (B1 two kernels a call), each with its
+     CPU launch (a replay's graph launch), and a "graph <step>" range per
+     replay; a "B1 detect_cands" / "B2 slice_windows" range per wrapper
+     call for B1 and B2 launched bare, with no torch kernel beside them
+     and with one between, and for the eager int8 step; the compiled
+     step's replays, B1 and B2 once each, none lost; 40 sessions of one int8 step, none losing a
      device event of its work; at C = 64 blocks of 2^22, B1's summed
      trace time within 5% of its card time behind a spin, and the step's
      trace busy time beside its card time (the step profiles of phases 6,
@@ -132,7 +134,19 @@ process per source, all at once), then:
      end and its multi-channel aggregate; each figure must pass its own
      check, launch B1 and B2 where it runs the planar step, and decode
      what the same call decodes on the CPU;
- 20. prints one JSON line of per-kernel numbers, the card line, and last
+ 20. holds every compiled step (the `*_jit` entry points: captured CUDA
+     graphs, `airmodes_torch.utils.graphs`) against its eager function on
+     the card, bit for bit, and against the CPU: the planar step on phase
+     6's capture at its defaults and with ordered, prescreen and
+     xla_gather; B3 and B4 on phase 7's; the 1-D steps at sps 2 and 10;
+     the fused resample step on phase 13's; the full-block steps; each on
+     two inputs (a replay on new inputs, two outputs in flight), its
+     launches per replay, its graph's kernel nodes by symbol, and its step
+     time eager against graphed; the graphed int8 and f32 steps'
+     profiles; and that the noise floor's scan of one row gives one
+     result every run (fault C3), beside torch.cumsum's. Phases 6, 7 and 11-14 and 19 run the runners and the bench,
+     whose steps are these graphs;
+ 21. prints one JSON line of per-kernel numbers, the card line, and last
      {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero. Without a CUDA card, or without the
@@ -613,10 +627,16 @@ def trace_counts(trace):
           launch event (cuda_runtime, cuda_driver) carries;
       by_name: {name: [count, summed us]} of every kernel, copy and memset;
       device_events, busy_us: their number, the union of their intervals;
-      ranges: {name: host ranges (record_function, "B1 detect_cands")};
+      ranges: {name: host ranges (record_function, "B1 detect_cands";
+          "graph <step>" around a graph's replay, "graph capture <step>"
+          around its capture)};
       host_ops, host_threads: torch ops on the host, the threads they ran on;
       lost, primer_lost: kernel launches on the host (any kernel's) with no
           device event, outside and inside the primer;
+      captured: launches with no device event inside a graph's capture
+          (on the capturing thread): recorded into the graph, not run (a
+          replay's kernels carry the correlation id of its one graph
+          launch);
       lead_us: the most by which a device event starts before its CPU
           launch on the trace's clock (the profiler's offset between the
           card's clock and the host's; 0 where it maps none early)."""
@@ -628,6 +648,10 @@ def trace_counts(trace):
     primers = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
                for e in events if e.get("cat") == "user_annotation"
                and e["name"] == "profiler primer"]
+    captures = [(e.get("tid"), float(e["ts"]),
+                 float(e["ts"]) + float(e.get("dur", 0.0)))
+                for e in events if e.get("cat") == "user_annotation"
+                and e["name"].startswith("graph capture ")]
     launched, primed = {}, set()
     for e in events:
         if e.get("cat") in ("cuda_runtime", "cuda_driver") \
@@ -648,13 +672,18 @@ def trace_counts(trace):
            "device_events": len(device), "ranges": {},
            "host_ops": len(ops),
            "host_threads": len({e.get("tid") for e in ops}),
-           "lost": 0, "primer_lost": 0}
+           "lost": 0, "primer_lost": 0, "captured": 0}
     for e in events:
         if e.get("cat") in ("cuda_runtime", "cuda_driver") \
                 and "aunch" in e["name"] \
                 and e.get("args", {}).get("correlation") not in recorded:
-            out["primer_lost" if e["args"].get("correlation") in primed
-                else "lost"] += 1
+            if e["args"].get("correlation") in primed:
+                out["primer_lost"] += 1
+            elif any(tid == e.get("tid") and lo <= float(e["ts"]) <= hi
+                     for tid, lo, hi in captures):
+                out["captured"] += 1
+            else:
+                out["lost"] += 1
         elif e.get("cat") == "user_annotation":
             out["ranges"][e["name"]] = out["ranges"].get(e["name"], 0) + 1
     out["lead_us"] = max([0.0] + [
@@ -799,6 +828,14 @@ def phase_main(cfg, dev, tmp, smi):
                                rtol=1e-5)
     print(f"main: first batch table on the card == CPU "
           f"({int((on_cpu[:, :-1, 0] >= 0).sum())} detections)", flush=True)
+    # the compiled step on the host batch, as the runner calls it (this
+    # captures the graph the runner replays)
+    graphed = K.demod_batch_packed_planar_jit(xi, xq, cfg, device=dev)
+    if not np.array_equal(graphed.cpu().numpy(), on_card):
+        raise AssertionError("first batch: the graphed step != the eager "
+                             "step on the card")
+    print("main: first batch, the graphed step == the eager step on the "
+          "card, bit for bit", flush=True)
 
     step_ms = time_ms(lambda: K.demod_batch_packed_planar(ti, tq, cfg,
                                                           device=dev),
@@ -899,6 +936,12 @@ def phase_main_f32(cfg, dev, tmp, smi):
                                rtol=1e-5)
     print(f"f32: first batch table on the card == CPU "
           f"({int((on_cpu[:, :-1, 0] >= 0).sum())} detections)", flush=True)
+    graphed = K.demod_batch_packed_fast_jit(xb, cfg, tile=tile, device=dev)
+    if not np.array_equal(graphed.cpu().numpy(), on_card):
+        raise AssertionError("f32 first batch: the graphed step != the "
+                             "eager step on the card")
+    print("f32: first batch, the graphed step == the eager step on the "
+          "card, bit for bit", flush=True)
     # the steps the runner dispatches must not wait on the card: any
     # synchronising call inside them raises in this mode
     step_b = _batch_step(cfg, dev)
@@ -918,7 +961,8 @@ def phase_main_f32(cfg, dev, tmp, smi):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     print("f32: the runner's batch steps (B4; int8: B1, B2) and one-block "
-          "step (B3) ran with no host synchronisation", flush=True)
+          "step (B3), captured graphs, ran with no host synchronisation",
+          flush=True)
     step_ms = time_ms(lambda: K.demod_batch_packed_fast(xt, cfg, tile=tile,
                                                         device=dev),
                       device_only=False)
@@ -1035,14 +1079,10 @@ def _run_batches(batches, step, cfg, what, rtol):
     return msgs
 
 
-def phase_planar_options(cfg, dev, path, truth, smi):
-    """The planar path's reference options over the uc8 capture of phase
-    6, framed by the runner's AGC framer into batches of 8: ordered=True
-    (B5o, compact_candidates), prescreen=True (B5p, stage B) and
-    xla_gather=True (B1, a torch gather in place of B2). Returns the
-    launch counts of B5o and B5p."""
+def planar_batches(cfg, path):
+    """A uc8 capture framed by the int8 runner's AGC framer into batches of
+    BATCH: [((planar I, Q) numpy, starts, full scales)]."""
     import numpy as np
-    import torch
     from airmodes_torch.io.native_stream import _PlanarSource
     from airmodes_torch.kernels import preamble as K
     p = K.planar_length(cfg)
@@ -1064,6 +1104,18 @@ def phase_planar_options(cfg, dev, path, truth, smi):
             batches.append(((xi, xq), starts, scales))
     finally:
         src.close()
+    return batches
+
+
+def phase_planar_options(cfg, dev, path, truth, smi):
+    """The planar path's reference options over the uc8 capture of phase
+    6, framed by the runner's AGC framer into batches of 8: ordered=True
+    (B5o, compact_candidates), prescreen=True (B5p, stage B) and
+    xla_gather=True (B1, a torch gather in place of B2). Returns the
+    launch counts of B5o and B5p."""
+    import torch
+    from airmodes_torch.kernels import preamble as K
+    batches = planar_batches(cfg, path)
     if sum(len(b[1]) for b in batches) != N_MAIN_BLOCKS:
         raise AssertionError("the uc8 capture did not frame into "
                              f"{N_MAIN_BLOCKS} blocks")
@@ -1282,6 +1334,7 @@ CHANNEL_BLOCKS = (8, 8, 6, 3)
 def phase_channels(cfg, dev, tmp, smi):
     """run_native_channels at C = 4 over uc8 captures of unequal length;
     returns the launch counts of that run."""
+    import numpy as np
     import torch
     from airmodes_torch.dsp.host import BlockStats
     from airmodes_torch.io.native_stream import run_native_channels
@@ -1290,6 +1343,11 @@ def phase_channels(cfg, dev, tmp, smi):
     for c, n in enumerate(CHANNEL_BLOCKS):
         paths.append(os.path.join(tmp, f"ch{c}.uc8"))
         truths.append(write_capture(cfg, paths[-1], n, seed=11 + c))
+    # the runner's compiled step captured first, as phase 6's is: the
+    # timed run replays it
+    p = K.planar_length(cfg)
+    zi = np.zeros((len(paths), p), np.int8)
+    K.demod_batch_packed_planar_jit(zi, zi, cfg, device=dev)
     stats = BlockStats()
     K.reset_launches()
     t0 = time.perf_counter()
@@ -1473,6 +1531,8 @@ def phase_resampled(cfg, dev, tmp, smi):
           f"{n_bytes / 1e6:.1f} MB per batch in {copy_ms:.4f} ms "
           f"({n_bytes / copy_ms / 1e6:.1f} GB/s) [{smi}]", flush=True)
 
+    # the runner's compiled step captured first: the timed run replays it
+    RF.resample_demod_packed_planar_jit(first, None, cfg, p, q, device=dev)
     stats = BlockStats()
     K.reset_launches()
     t0 = time.perf_counter()
@@ -1552,6 +1612,7 @@ def phase_resampled(cfg, dev, tmp, smi):
         pth, cfg4, "complex64", 0, geom4, 1)))[0] for pth in paths],
         pinned)
     _same_front(x, cfg4, p4, q4, dev, "resampled channels, step 0")
+    RF.resample_demod_packed_planar_jit(x, None, cfg4, p4, q4, device=dev)
     stats = BlockStats()
     K.reset_launches()
     t0 = time.perf_counter()
@@ -2218,6 +2279,9 @@ def c2_report(cfg, dev, tmp, uc8, flush, windows=C2_WINDOWS):
           kernel between the launches: trace_counts;
       step: C2_REPS int8 steps (`demod_batch_packed_planar`) on the
           capture's first BATCH blocks: trace_counts;
+      graphed: C2_REPS replays of the compiled step
+          (`demod_batch_packed_planar_jit`, captured before the session)
+          on the same blocks: trace_counts;
       windows: `windows` sessions of one such step each: their lost
           launches, the card clock's lead and B1's device events;
       big: at C = 64 blocks of 2^22 (the stage probe's input), for B1
@@ -2239,6 +2303,8 @@ def c2_report(cfg, dev, tmp, uc8, flush, windows=C2_WINDOWS):
 
     logdir = os.path.join(tmp, "profile")
     K.reset_launches()
+    step = K.demod_batch_packed_planar_jit
+    graph0 = (step.captures, step.replays)
     rc = modes_rx.main(["-s", uc8, "--file-format", "uc8", "--int8", "-n",
                         "--stats-interval", "0", "--block-size",
                         str(cfg.block_size), "--device", str(dev),
@@ -2248,6 +2314,8 @@ def c2_report(cfg, dev, tmp, uc8, flush, windows=C2_WINDOWS):
     rep["cli"] = {"rc": rc, "launches": {
         "B1": K.DETECT_CANDS_ROUTES["B1"],
         "B2": K.LAUNCHES["slice_windows"]},
+        "captures": step.captures - graph0[0],
+        "replays": step.replays - graph0[1],
         "traces": len(traces),
         "trace": _no_rows(trace_counts(traces[0])) if traces else None}
 
@@ -2259,6 +2327,8 @@ def c2_report(cfg, dev, tmp, uc8, flush, windows=C2_WINDOWS):
     rep["step"] = _no_rows(profile_window(
         lambda: K.demod_batch_packed_planar(ti, tq, cfg, device=dev),
         C2_REPS)[0])
+    rep["graphed"] = _no_rows(profile_window(
+        lambda: step(ti, tq, cfg, device=dev), C2_REPS)[0])
     rep["windows"] = []
     for _ in range(windows):
         c = profile_window(lambda: K.demod_batch_packed_planar(
@@ -2309,13 +2379,18 @@ def _per_call_ok(what, counts, want, ranges):
 
 def phase_profile(cfg, dev, tmp, smi, uc8, flush):
     """Phase 17: the port's profiler trace holds every hand-kernel launch
-    (fault C2). `modes_rx --int8 --profile` over phase 6's capture: each
-    kernel's device events equal its wrapper's launch-counter delta times
-    the kernels per call (B1: a chunk and a merge kernel; B2: one), each
-    with its CPU launch, and the "B1 detect_cands" and "B2 slice_windows"
-    ranges equal the wrapper calls; the same for B1 and B2 launched bare,
-    with no torch kernel beside them and with one between, and for the
-    int8 step; C2_WINDOWS sessions of one int8 step, none losing a device
+    (fault C2). `modes_rx --int8 --profile` over phase 6's capture, whose
+    runner replays the compiled step: each kernel's device events equal
+    its wrapper's launch-counter delta times the kernels per call (B1: a
+    chunk and a merge kernel; B2: one), each with its CPU launch (the
+    replay's graph launch), and the "graph <step>" ranges equal the
+    replays; for B1 and B2 launched bare, with no torch
+    kernel beside them and with one between, and for the eager int8
+    step, the "B1 detect_cands" and "B2 slice_windows" ranges equal the
+    wrapper calls; the compiled step's replays hold B1 and B2 once each,
+    under "graph <step>" ranges and none of the wrappers', no launch
+    without its device event; C2_WINDOWS
+    sessions of one int8 step, none losing a device
     event of its work; at C = 64 blocks of 2^22 B1's summed trace time
     within 5% of its card time behind a spin, and the step's trace busy
     time printed beside its card time. (The int8, f32, resampled and
@@ -2333,15 +2408,30 @@ def phase_profile(cfg, dev, tmp, smi, uc8, flush):
         raise AssertionError(f"profile: modes_rx --int8 --profile: exit "
                              f"{cli['rc']}, {cli['traces']} traces, "
                              f"launches {cli['launches']}")
+    # the CLI's int8 runner replays the compiled step (captured in phase
+    # 6, or here in its own range): its kernels are read by symbol, each
+    # replay's under the replay's one graph launch, against the launch
+    # counters; the wrappers' ranges open at a capture only
+    name = "demod_batch_packed_planar_jit"
     _per_call_ok("modes_rx --int8 --profile", cli["trace"],
                  {"detect_chunk_kernel": n1, "merge_unordered_kernel": n1,
                   "slice_windows_kernel": n2},
-                 {"B1 detect_cands": n1, "B2 slice_windows": n2})
+                 {f"graph {name}": cli["replays"],
+                  f"graph capture {name}": cli["captures"]})
+    if cli["replays"] <= 0:
+        raise AssertionError("profile: modes_rx --int8 --profile replayed "
+                             "no graph")
     every = {sym: C2_REPS for sym in B1_B2_SYMBOLS}
     for key in ("bare", "bare+op", "step"):
         _per_call_ok(f"{key}, {C2_REPS} calls", r[key], every,
                      {"B1 detect_cands": C2_REPS,
                       "B2 slice_windows": C2_REPS})
+    _per_call_ok(f"graphed step, {C2_REPS} replays", r["graphed"], every,
+                 {f"graph {name}": C2_REPS, "B1 detect_cands": 0,
+                  "B2 slice_windows": 0})
+    if r["graphed"]["lost"] or r["graphed"]["captured"]:
+        raise AssertionError("profile: graphed step: launches without a "
+                             "device event")
     lost = [w for w in r["windows"] if w["lost"] or w["B1"] != 1]
     print(f"profile: {len(r['windows'])} one-step sessions: {len(lost)} "
           f"lost a kernel's device event, "
@@ -2681,6 +2771,290 @@ def phase_bench(dev, smi):
           flush=True)
 
 
+# --- phase 20: the compiled steps as captured CUDA graphs -------------------
+
+def _leaves(tree):
+    """The tensors of a step's output: a tensor or a tuple of them."""
+    return list(tree) if isinstance(tree, tuple) else [tree]
+
+
+def graph_nodes(fn, *args, **kw):
+    """The nodes of graphed function fn's graph for these arguments,
+    captured afresh with `utils.graphs.DEBUG` set: ({hand-kernel symbol:
+    kernel nodes}, {node type: nodes}), read from the graph's debug dump
+    (`cudaGraphDebugDotPrint`, one record per node, its type first and a
+    kernel's function name, mangled, in it)."""
+    import re
+    from airmodes_torch.utils import graphs
+    fn.cache_clear()
+    graphs.DEBUG = True
+    try:
+        graph = fn.graph_for(*args, **kw)
+    finally:
+        graphs.DEBUG = False
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "graph.dot")
+        graph.debug_dump(path)
+        with open(path) as f:
+            text = f.read()
+    fn.cache_clear()
+    heads = [m.start() for m in re.finditer(r'^"graph_\d+_node_\d+"\[',
+                                            text, re.M)]
+    if not heads:
+        raise AssertionError(f"graph nodes: no node in the dump: "
+                             f"{text[:600]!r}")
+    symbols = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    types = {}
+    for a, b in zip(heads, heads[1:] + [len(text)]):
+        node = text[a:b]
+        kind = next((k for k in ("KERNEL", "MEMCPY", "MEMSET", "EMPTY",
+                                 "HOST", "EVENT", "MEM_ALLOC", "MEM_FREE")
+                     if k in node), "OTHER")
+        types[kind] = types.get(kind, 0) + 1
+        if kind == "KERNEL":
+            for sym in KERNEL_SYMBOLS:
+                # the mangled name (its length, then the name) or the
+                # demangled one; not a torch kernel that holds the name
+                symbols[sym] += bool(re.search(
+                    rf"(?:{len(sym)}{sym}[IE]|(?:^|[\s:]){sym}(?!\w))",
+                    node))
+    return symbols, types
+
+
+def _graph_case(what, fn, eager, args0, args1, kw, dev, smi, cpu_check,
+                nodes, counted):
+    """Phase 20's checks of one compiled step `fn` (a graphed entry point)
+    against its eager function `eager`, on two host inputs (positional
+    arguments args0, args1; keywords kw):
+
+    - captured afresh, the two calls (the second a replay on new inputs,
+      queued behind the first) equal the eager step on the card, every
+      output bit for bit; their outputs differ (the inputs do) and do not
+      alias; the first output is unchanged by the second replay;
+    - each replay adds the launches of one eager call: the first call
+      (a warm-up run and a replay) counts twice what the second adds, and
+      every counter in `counted` moves;
+    - cpu_check(graphed outputs, the eager step's on the CPU) holds;
+    - the graph's kernel nodes: each symbol of `nodes` at least once, no
+      other hand kernel;
+    - the step as the host sees it and on the card alone (time_ms, events
+      with and without the spin), eager against graphed, both with their
+      inputs on the card (the graph's in its own buffers).
+
+    Returns {"eager_ms", "graph_ms", "eager_card_ms", "graph_card_ms",
+    "per_replay"} and the graph's resident arguments."""
+    import numpy as np
+    import torch
+    from airmodes_torch.kernels import preamble as K
+
+    def counts():
+        return {**K.LAUNCHES, **{f"route {k}": v for d in (
+            K.DETECT_CANDS_ROUTES, K.DETECT_MASK_ROUTES) for k, v in d.items()}}
+
+    fn.cache_clear()
+    K.reset_launches()
+    g0 = fn(*args0, **kw, device=dev)
+    first = counts()
+    g1 = fn(*args1, **kw, device=dev)
+    second = counts()
+    per_replay = {k: second[k] - first[k] for k in second
+                  if second[k] != first[k]}
+    if any(first[k] != 2 * second[k] - 2 * first[k] for k in first) \
+            or any(per_replay.get(k, 0) <= 0 for k in counted):
+        raise AssertionError(f"graphs: {what}: launches after the first "
+                             f"call {first}, per replay {per_replay}")
+    e0 = eager(*args0, **kw, device=dev)
+    e1 = eager(*args1, **kw, device=dev)
+    for g, e, k in ((g0, e0, 0), (g1, e1, 1)):
+        for a, b in zip(_leaves(g), _leaves(e)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"graphs: {what}: input {k}, the "
+                                     f"graphed step != the eager step")
+    if all(torch.equal(a, b) for a, b in zip(_leaves(e0), _leaves(e1))):
+        raise AssertionError(f"graphs: {what}: the two inputs give one "
+                             f"output")
+    if any(a.data_ptr() == b.data_ptr()
+           for a, b in zip(_leaves(g0), _leaves(g1))):
+        raise AssertionError(f"graphs: {what}: two outputs alias")
+    note = cpu_check([t.cpu() for t in _leaves(g0)],
+                     _leaves(eager(*args0, **kw, device="cpu")))
+    sym, types = graph_nodes(fn, *args0, **kw, device=dev)
+    hand = {k: v for k, v in sym.items() if v}
+    if set(hand) != set(nodes):
+        raise AssertionError(f"graphs: {what}: hand-kernel nodes {hand}, "
+                             f"wanted {nodes}")
+
+    def on_card(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev) \
+            if isinstance(a, np.ndarray) else \
+            a.to(dev) if isinstance(a, torch.Tensor) else a
+    dargs = tuple(on_card(a) for a in args0)
+    held = iter(fn.static_inputs(*args0, **kw, device=dev))
+    gargs = tuple(next(held) if isinstance(a, (np.ndarray, torch.Tensor))
+                  else a for a in args0)
+    t = {"eager_ms": time_ms(lambda: eager(*dargs, **kw, device=dev),
+                             device_only=False),
+         "graph_ms": time_ms(lambda: fn(*gargs, **kw, device=dev),
+                             device_only=False),
+         "eager_card_ms": time_ms(lambda: eager(*dargs, **kw, device=dev)),
+         "graph_card_ms": time_ms(lambda: fn(*gargs, **kw, device=dev)),
+         "per_replay": per_replay}
+    print(f"graphs: {what}: two calls == the eager step bit for bit, "
+          f"outputs distinct; {note}; launches per replay {per_replay}; "
+          f"kernel nodes {hand} of {types} nodes; step as the host sees "
+          f"it: eager {t['eager_ms']:.4f} ms, graphed {t['graph_ms']:.4f} "
+          f"ms; card alone: eager {t['eager_card_ms']:.4f} ms, graphed "
+          f"{t['graph_card_ms']:.4f} ms [{smi}]", flush=True)
+    return t, gargs
+
+
+def _packed_vs_cpu(rtol):
+    """A cpu_check of packed tables: every int32 column equal, noise within
+    rtol (_check_batch); notes whether noise is equal bit for bit too."""
+    def check(card, cpu):
+        import numpy as np
+        a, b = card[0].numpy(), cpu[0].numpy()
+        _check_batch(a, b, "graphs", rtol)
+        n = int((a[..., :-1, 4] != b[..., :-1, 4]).sum())
+        return (f"== CPU (int32 columns exact; noise within rtol "
+                f"{rtol:g}, {n} values not bit for bit)")
+    return check
+
+
+def phase_graphs(cfg, dev, tmp, smi):
+    """Phase 20: every compiled step (the `*_jit` entry points, captured
+    CUDA graphs) held on the card against its eager function and the
+    CPU (_graph_case): the planar step on phase 6's capture at its
+    defaults and with ordered, prescreen and xla_gather; B3 and B4 on
+    phase 7's capture; the 1-D steps at sps 2 and 10; the fused resample
+    step on phase 13's capture; the full-block steps. Then the int8 and
+    f32 steps' profiles, graphed (the card's busy share and device ops
+    per replay). Returns the per-case timings."""
+    import numpy as np
+    import torch
+    from airmodes_torch.config import DspConfig
+    from airmodes_torch.dsp import pipeline as P
+    from airmodes_torch.dsp.host import table_to_messages
+    from airmodes_torch.io import stream as S
+    from airmodes_torch.kernels import preamble as K
+    from airmodes_torch.resample import fused as RF
+    from airmodes_torch.resample.polyphase import rational_rate
+    t0 = time.perf_counter()
+    out = {}
+    # fault C3: one row through torch.cumsum (CUB's device-wide scan) and
+    # through the noise floor's row scan, 20 runs each on one input
+    row = torch.randn(1 << 20, device=dev,
+                      generator=torch.Generator(dev).manual_seed(0))
+    same = {}
+    for name, scan in (("torch.cumsum", lambda: torch.cumsum(row, 0)),
+                       ("_row_cumsum", lambda: P._row_cumsum(row))):
+        runs = [scan() for _ in range(20)]
+        same[name] = sum(torch.equal(runs[0], r) for r in runs)
+    print(f"graphs: a row of 2^20 f32 scanned 20 times: torch.cumsum "
+          f"{same['torch.cumsum']} of 20 runs equal to the first, the "
+          f"noise floor's row scan {same['_row_cumsum']} of 20 [{smi}]",
+          flush=True)
+    if same["_row_cumsum"] != 20:
+        raise AssertionError("graphs: the noise floor's row scan is not "
+                             "deterministic (fault C3)")
+    (b0, _, _), (b1, _, _) = planar_batches(
+        cfg, os.path.join(tmp, "main.uc8"))[:2]
+    b1_b2 = {"detect_chunk_kernel", "merge_unordered_kernel",
+             "slice_windows_kernel"}
+    for opt, nodes, counted in (
+            ("", b1_b2, ("detect_cands", "slice_windows")),
+            ("ordered", {"detect_chunk_kernel", "merge_ordered_kernel",
+                         "slice_windows_kernel"},
+             ("detect_cands", "slice_windows", "route B5o")),
+            ("prescreen", b1_b2, ("detect_cands", "slice_windows",
+                                  "route B5p")),
+            ("xla_gather", {"detect_chunk_kernel",
+                            "merge_unordered_kernel"}, ("detect_cands",))):
+        kw = {opt: True} if opt else {}
+        what = f"planar {opt or 'defaults'}"
+        out[what], held = _graph_case(
+            what, K.demod_batch_packed_planar_jit,
+            K.demod_batch_packed_planar, (*b0, cfg), (*b1, cfg), kw, dev,
+            smi, _packed_vs_cpu(1e-5), nodes, counted)
+        if not opt:
+            profile_step(lambda: K.demod_batch_packed_planar_jit(
+                *held, device=dev), smi, expect=B1_B2_SYMBOLS)
+
+    c64 = os.path.join(tmp, "main.c64")
+    xb0 = np.stack([b for b, _ in _stream_blocks(cfg, c64, 0, BATCH)])
+    xb1 = np.stack([b for b, _ in _stream_blocks(cfg, c64, BATCH,
+                                                 2 * BATCH)])
+    tile = K.supported_2d_tile(cfg)
+    mask = {"detect_mask_kernel"}
+    out["B3"], _ = _graph_case(
+        "B3 (one block)", K.demod_block_packed_fast_jit,
+        K.demod_block_packed_fast, (xb0[0], cfg), (xb1[0], cfg),
+        {"tile": tile}, dev, smi, _packed_vs_cpu(1e-5), mask,
+        ("detect_mask", "route B3"))
+    out["B4"], held = _graph_case(
+        "B4 (f32 batch)", K.demod_batch_packed_fast_jit,
+        K.demod_batch_packed_fast, (xb0, cfg), (xb1, cfg), {"tile": tile},
+        dev, smi, _packed_vs_cpu(1e-5), mask, ("detect_mask", "route B4"))
+    profile_step(lambda: K.demod_batch_packed_fast_jit(
+        *held, tile=tile, device=dev), smi, expect=("detect_mask_kernel",))
+    out["full-block batch"], _ = _graph_case(
+        "full-block batch (no hand kernel)", P.demod_batch_packed_jit,
+        P.demod_batch_packed, (xb0[:2], cfg), (xb1[:2], cfg), {}, dev, smi,
+        _packed_vs_cpu(1e-4), set(), ())
+    out["full-block block"], _ = _graph_case(
+        "full-block block (no hand kernel)", P.demod_block_packed_jit,
+        P.demod_block_packed, (xb0[0], cfg), (xb1[0], cfg), {}, dev, smi,
+        _packed_vs_cpu(1e-4), set(), ())
+    del xb0, xb1
+
+    for rate in (4e6, 20e6):
+        cfg_r = DspConfig(channel_rate=rate)
+        (_, f), _ = mixed_capture(cfg_r, 4, seed=9, planar=False)
+        what = f"1-D at sps {cfg_r.sps}"
+        out[what + " batch"], _ = _graph_case(
+            what + ", batch of 2", K.demod_batch_packed_1d_jit,
+            K.demod_batch_packed_1d, (f[:2], cfg_r), (f[2:], cfg_r), {},
+            dev, smi, _packed_vs_cpu(1e-4), mask,
+            ("detect_mask", "route B6 batch"))
+        out[what + " block"], _ = _graph_case(
+            what + ", one block", K.demod_block_packed_1d_jit,
+            K.demod_block_packed_1d, (f[0], cfg_r), (f[1], cfg_r), {}, dev,
+            smi, _packed_vs_cpu(1e-4), mask, ("detect_mask", "route B6"))
+        del f
+
+    p, q = rational_rate(RESAMPLED_RATE, cfg.channel_rate)
+    geometry = RF.raw_geometry(cfg, p, q)[:3]
+    wins = _batches(S._raw_windows(os.path.join(tmp, "resampled.c64"), cfg,
+                                   "complex64", 0, geometry, 2 * BATCH),
+                    BATCH)
+    x0, x1 = (S._stack_planar([w for w, _ in acc], True) for acc in wins)
+
+    def fused_vs_cpu(card, cpu):
+        np.testing.assert_allclose(card[1].numpy(), cpu[1].numpy(),
+                                   rtol=1e-6, err_msg="fused AGC gains")
+        worst = 0.0
+        for j in range(card[0].shape[0]):
+            def msgs(t, g):
+                return table_to_messages(
+                    P.unpack_table(t[j].numpy()), 0, cfg.channel_rate,
+                    full_scale=float(g[j]) / 127.0)
+            worst = max(worst, _same_messages(
+                msgs(card[0], card[1]), msgs(cpu[0], cpu[1]),
+                f"graphs: fused, block {j}"))
+        return (f"== CPU (gains rtol 1e-6, messages field by field, "
+                f"ref_dbfs within {worst:.2f} dB)")
+    out["fused"], _ = _graph_case(
+        "fused resample 10 -> 2 Msps", RF.resample_demod_packed_planar_jit,
+        RF.resample_demod_packed_planar, (x0, None, cfg, p, q),
+        (x1, None, cfg, p, q), {}, dev, smi, fused_vs_cpu, b1_b2,
+        ("detect_cands", "slice_windows"))
+    del x0, x1
+    torch.cuda.empty_cache()
+    print(f"graphs: phase 20 took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
 def _count(x):
     """The size of a figure's set of hexes (or ICAOs), or its count."""
     return len(x) if isinstance(x, (set, frozenset)) else x
@@ -2860,6 +3234,7 @@ def main() -> int:
                       flush)
         phase_entry_points(dev, tmp, smi)
         phase_bench(dev, smi)
+        phase_graphs(cfg, dev, tmp, smi)
 
     half = cfg.nms_chips * cfg.sps
     b1_ms, b1_plain, b1_bytes, b1_samples = b1_t

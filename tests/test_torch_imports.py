@@ -83,6 +83,95 @@ def test_every_reference_module_is_ported():
     assert len(ref) > 40
 
 
+# reference names the port gives another name, by reference module: the
+# 1-D Pallas path is the port's `_1d` path (kernel B6), the 2-D f32 path its
+# `_2d` detect and `_fast` demod (B3, B4)
+_RENAMED_NAMES = {
+    "airmodes.kernels.preamble_pallas": {
+        "preamble_detect_pallas": "preamble_detect_1d",
+        "preamble_detect_pallas_batch": "preamble_detect_1d_batch",
+        "preamble_detect_pallas_2d": "preamble_detect_2d",
+        "preamble_detect_pallas_2d_batch": "preamble_detect_2d_batch",
+        "demod_block_pallas": "demod_block_1d",
+        "demod_batch_pallas": "demod_batch_1d",
+        "demod_block_packed_pallas_jit": "demod_block_packed_1d_jit",
+        "demod_batch_packed_pallas_jit": "demod_batch_packed_1d_jit",
+        "demod_block_pallas_fast": "demod_block_fast",
+        "demod_batch_pallas_fast": "demod_batch_fast",
+    },
+}
+
+# reference names with no counterpart in the port, each because it
+# describes the TPU
+_TPU_ONLY = {
+    # a jaxpr count of the TPU's (8, 128)-lane vector passes per sample;
+    # the port's opcount counts the Hopper kernels' f32 instructions and
+    # bytes (b1_ops_per_sample, ...) instead
+    "airmodes.kernels.opcount": {"count_ops", "detect_ops_per_sample"},
+    # the default `per_tile` of the TPU kernel's private in-kernel
+    # extraction (`_extract_cands`); the port's ordered merge takes
+    # `cand_capacity(tile)`, as the reference's public path does
+    "airmodes.kernels.preamble_pallas": {"CAND_PER_TILE"},
+}
+
+
+def _public_names(path):
+    """The public top-level functions, classes and UPPER_CASE constants
+    of a source file."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    out = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            out |= {t.id for t in targets if isinstance(t, ast.Name)
+                    and t.id.isupper()}
+    return {n for n in out if not n.startswith("_")}
+
+
+def test_every_reference_function_is_ported():
+    """Each public top-level function, class and constant of each
+    reference module has its counterpart, by name, in the port's module
+    (`_RENAMED` modules, `_RENAMED_NAMES` names), except the TPU-only
+    names of `_TPU_ONLY`. It pins the compiled-step family: every `*_jit`
+    of the reference has its graphed counterpart."""
+    top = os.path.join(ROOT, "airmodes")
+    missing, jits = [], 0
+    for dirpath, _, files in os.walk(top):
+        for f in sorted(files):
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, f)
+            rel = os.path.relpath(path, ROOT)[:-3].split(os.sep)
+            mod = ".".join(rel[:-1] if rel[-1] == "__init__" else rel)
+            port = _RENAMED.get(mod, "airmodes_torch" + mod[len("airmodes"):])
+            ppath = os.path.join(ROOT, *port.split("."))
+            ppath = (os.path.join(ppath, "__init__.py")
+                     if os.path.isdir(ppath) else ppath + ".py")
+            have = _public_names(ppath)
+            rename = _RENAMED_NAMES.get(mod, {})
+            for name in sorted(_public_names(path)
+                               - _TPU_ONLY.get(mod, set())):
+                jits += name.endswith("_jit")
+                if rename.get(name, name) not in have:
+                    missing.append(f"{mod}.{name}")
+    assert missing == []
+    assert jits == 9
+
+
+def test_every_renamed_or_tpu_only_name_exists_in_the_reference():
+    """The two lists name real reference names (so a stale entry cannot
+    hide a name the port lacks)."""
+    for mod, names in list(_RENAMED_NAMES.items()) + [
+            (m, {n: n for n in ns}) for m, ns in _TPU_ONLY.items()]:
+        path = os.path.join(ROOT, *mod.split(".")) + ".py"
+        assert set(names) <= _public_names(path), mod
+
+
 def test_every_decode_and_output_module_is_ported():
     """Each module of the reference's decode/ and outputs/ has its copy in
     the port."""
@@ -101,6 +190,26 @@ def test_package_exports_match_reference():
                  "Config", "SourceConfig", "OutputConfig", "exceptions",
                  "run_native_channels"):
         assert name in airmodes_torch.__all__
+        assert getattr(airmodes_torch, name) is not None
+
+
+def test_package_exports_every_reference_export():
+    """Every name of the reference package's `__all__` and of its lazily
+    resolved DSP symbols (`_DSP_SYMBOLS`, read from its source: importing
+    them loads JAX) is exported by the port, the compiled steps
+    `demod_block_jit` and `demod_batch_jit` among them."""
+    with open(os.path.join(ROOT, "airmodes", "__init__.py")) as f:
+        tree = ast.parse(f.read())
+    want = set()
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id in ("__all__",
+                                                     "_DSP_SYMBOLS")
+                for t in node.targets):
+            want |= set(ast.literal_eval(node.value))
+    assert {"demod_block_jit", "demod_batch_jit", "parse"} <= want
+    assert want <= set(airmodes_torch.__all__)
+    for name in want:
         assert getattr(airmodes_torch, name) is not None
 
 
