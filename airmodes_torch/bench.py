@@ -562,9 +562,10 @@ def bench_sharded_resample(seed: int = 55, block_size: int = 1 << 22,
     group matmuls, quantized to int8 on the device and demodulated by the
     planar step (B1, B2) on a card; on the CPU the f32 path (the
     full-block demod). Decode parity first, then `channels` copies of the
-    capture per call, R calls summed per timed unit, 2 units in flight
-    (Msps at the channel rate). The check: misses <= 1%, every sum equal
-    to the first."""
+    capture per application, R applications and the sum of their tables
+    per call (one compiled step, as the reference's jitted loop), 2 calls
+    in flight (Msps at the channel rate). The check: misses <= 1%, every
+    sum equal to the first."""
     dev = resolve_device(device)
     cfgr = DspConfig(channel_rate=4e6, block_size=block_size,
                      max_detections=64)
@@ -586,19 +587,16 @@ def bench_sharded_resample(seed: int = 55, block_size: int = 1 << 22,
         x1 = torch.from_numpy(iq_to_device_layout(iq_raw)[None])
     x1 = x1.to(dev)
 
-    def program(n):
-        """The fused step over n copies of the capture, a (n, 1) mesh on
+    def make(n):
+        """The fused step over n copies of the capture: a (n, 1) mesh on
         this one device (one planar call over the n channel shards)."""
         mesh = sharded.make_mesh(n_channel=n, n_time=1, device=dev)
         fn = sharded.make_sharded_resample_demod(mesh, cfgr, p_up, q_dn,
                                                  planar=planar)
-        xn = x1.repeat(n, *(1,) * (x1.ndim - 1))
-        if planar:
-            return lambda: fn(xn, gain)
-        return lambda: fn(xn)
+        return (lambda x, g: fn(x, g)) if planar else (lambda x, g: fn(x))
 
     before = _counts()
-    table = program(1)()
+    table = make(1)(x1, gain)
     sub = DetectionTable(*(f.cpu().numpy()[0, 0] for f in table))
     fs = gain / 127.0 if planar else 1.0
     got = {m.split()[1]
@@ -607,13 +605,26 @@ def bench_sharded_resample(seed: int = 55, block_size: int = 1 << 22,
     want = {t.hex for t in truth}
     ok = len(want - got) <= max(1, len(want) // 100)
 
-    run = program(channels)
+    step = make(channels)
+
+    def r_steps(x, g, device="cuda"):
+        """R applications of the step and the sum of their packed tables,
+        as the reference jits its loop of R applications into one
+        program."""
+        s = torch.sum(pack_table(step(x, g)))
+        for _ in range(R - 1):
+            s = s + torch.sum(pack_table(step(x, g)))
+        return s
+
+    # one compiled step (one graph on a card, the step's own graph
+    # inline), its input resident in the graph's buffers
+    compiled = graphed(counters=K.LAUNCH_COUNTERS)(r_steps)
+    xn, g = compiled.static_inputs(
+        x1.repeat(channels, *(1,) * (x1.ndim - 1)),
+        torch.tensor(gain, dtype=torch.float32), device=dev)
 
     def call():
-        s = torch.sum(pack_table(run()))
-        for _ in range(R - 1):
-            s = s + torch.sum(pack_table(run()))
-        return s
+        return compiled(xn, g, device=dev)
 
     first = call().item()
     runs, wrong = _in_flight(call, lambda o: o.item() == first, n_runs,

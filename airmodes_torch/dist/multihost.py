@@ -92,7 +92,7 @@ class PodPipeline:
 
     def __post_init__(self):
         import torch.distributed as dist
-        from ..dsp.pipeline import pack_table
+        from ..kernels.preamble import default_tile, supported_planar_tile
         dev = resolve_device(self.device)
         group = dist.group.WORLD if dist.is_initialized() else None
         if self.n_time is None:
@@ -111,33 +111,44 @@ class PodPipeline:
                                       dev)
         if self.planar is None:
             # the kernels' own gate, as the reference asks its kernels
-            from ..kernels.preamble import supported_planar_tile
             self.planar = (dev.type == "cuda"
                            and supported_planar_tile(self.cfg) is not None)
-        left, right = self.cfg.left_halo, self.cfg.right_halo
-        mesh = self.mesh
-        # the whole step comes back as ONE (C_loc, T_loc, K+1, 9) int32
-        # fetch; the step context of run_stream is sliced from the
-        # neighbouring steps' inputs, already on the device
+        cfg, mesh = self.cfg, self.mesh
+        left, right = cfg.left_halo, cfg.right_halo
+        # each step: the sharded step's host front, then its compiled
+        # local step with the packing inside (one captured graph on a
+        # card), so the whole step comes back as ONE (C_loc, T_loc, K+1,
+        # 9) int32 fetch. step3_fn slices the step context from the
+        # neighbouring steps' inputs, already on the device (transfers
+        # where a channel row spans ranks), outside the graph: a replay
+        # copies one step's input and two halo-sized contexts.
         if self.planar:
-            base = sharded.make_sharded_demod_planar_ctx(mesh, self.cfg)
-            self.step_fn = lambda xi, xq, li, lq, ri, rq: pack_table(
-                base(xi, xq, li, lq, ri, rq))
+            tile = default_tile(cfg)
 
-            def _step3(pi, pq, ci, cq, ni, nq):
+            def step_fn(xi, xq, li, lq, ri, rq):
+                return sharded._planar_local(
+                    *sharded._planar_front(mesh, cfg, xi, xq, (li, lq),
+                                           (ri, rq)),
+                    mesh=mesh, cfg=cfg, tile=tile, pack=True,
+                    device=mesh.device)
+
+            def step3_fn(pi, pq, ci, cq, ni, nq):
                 (li, lq), (ri, rq) = sharded._stream_edges(
                     mesh, (pi, pq), (ni, nq), left, right)
-                return pack_table(base(ci, cq, li, lq, ri, rq))
+                return step_fn(ci, cq, li, lq, ri, rq)
         else:
-            base = sharded.make_sharded_demod_ctx(mesh, self.cfg)
-            self.step_fn = lambda x, l, r: pack_table(base(x, l, r))
+            def step_fn(x, lctx, rctx):
+                return sharded._f32_local(
+                    *sharded._f32_front(mesh, cfg, x, lctx, rctx),
+                    mesh=mesh, cfg=cfg, pack=True, device=mesh.device)
 
-            def _step3(pv, cur, nx):
-                (l,), (r,) = sharded._stream_edges(mesh, (pv,), (nx,),
-                                                   left, right)
-                return pack_table(base(cur, l, r))
+            def step3_fn(pv, cur, nx):
+                (lctx,), (rctx,) = sharded._stream_edges(mesh, (pv,), (nx,),
+                                                         left, right)
+                return step_fn(cur, lctx, rctx)
 
-        self.step3_fn = _step3
+        self.step_fn = step_fn
+        self.step3_fn = step3_fn
         self.samples_per_step = self.n_time * self.cfg.block_size
 
     def _emit(self, packed: torch.Tensor, step_start_sample: int,

@@ -36,6 +36,23 @@ The planar steps stack every local shard's padded int8 row into one
 (C_loc*T_loc, P) batch and make one `demod_batch_planar` call on it, so
 kernels B1 and B2 launch once per step, not once per shard. The f32
 steps run the full-block `demod_block` per shard, as the reference does.
+
+Each step is the counterpart of the reference's jitted `shard_map`
+program: a host front, then a compiled local step (`_f32_local`,
+`_planar_local`, `_resample_local`: one captured CUDA graph per key on a
+card, `utils.graphs`). The front stays eager: it copies this rank's shards
+of a host array to the device (`_place`, `_ctx`), checks them, and runs the
+transfers between ranks (`_edge_exchange`; `batch_isend_irecv` is host
+code under gloo and has never been captured under NCCL). The local step
+takes this rank's tensors and the received edges, and holds the halo
+assembly, the step-edge context, the resampler, the quantize, the demod,
+the globalized indices and, for `PodPipeline`, the packed table. Its key
+is the mesh, the config and the step's other static arguments, so two
+factories built on equal arguments share one graph. Where one rank owns
+the mesh, as in every one-process run, no transfer runs and the whole
+step is one graph; the fused resample step whose channel rows continue on
+other ranks runs two graphs, with the demod halos' transfers between
+them.
 """
 
 from __future__ import annotations
@@ -48,7 +65,10 @@ import torch
 import torch.nn.functional as F
 
 from ..config import DspConfig
-from ..dsp.pipeline import DetectionTable, demod_block, resolve_device
+from ..dsp.pipeline import (DetectionTable, demod_block, pack_table,
+                            resolve_device)
+from ..kernels.preamble import LAUNCH_COUNTERS
+from ..utils.graphs import graphed
 
 # message tags of the two halo directions and the two step-edge contexts;
 # a stream's index is added, so every message between two ranks has its own
@@ -240,66 +260,91 @@ def _transfer(mesh: Mesh, plan) -> None:
         req.wait()
 
 
-def _exchange_halos(mesh: Mesh, xs: Sequence[torch.Tensor], left: int,
-                    right: int) -> List[torch.Tensor]:
-    """Ring halo exchange along "time" within each channel.
-
-    xs: streams of this rank's owned samples, each (C_loc, T_loc*N, ...)
-    (interleaved (C, N, 2) float or planar (C, N) int8: any trailing dims).
-    Returns each as (C_loc, T_loc, L+N+R, ...): the left halo from the
-    previous time shard, the right halo from the next, zeros at a
-    channel's first and last shard (the stream edges). Both directions are
-    separate transfers, as the reference's two ppermutes."""
+def _views(mesh: Mesh, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Each stream (C_loc, T_loc*N, ...) as (C_loc, T_loc, N, ...)."""
     c_loc, t_loc = mesh.local_shape
-    views = [x.reshape(c_loc, t_loc, x.shape[1] // t_loc, *x.shape[2:])
-             for x in xs]
-    lefts, rights = [], []
-    for v in views:
-        n = v.shape[2]
+    return [x.reshape(c_loc, t_loc, x.shape[1] // t_loc, *x.shape[2:])
+            for x in xs]
+
+
+def _edge_exchange(mesh: Mesh, xs: Sequence[torch.Tensor], left: int,
+                   right: int):
+    """The halo transfers between ranks, run here, outside any graph.
+
+    xs: streams of this rank's owned samples, each (C_loc, T_loc*N, ...).
+    Where one channel row is spread over several ranks, the row's inner
+    rank edges cross the group: this rank sends its tail to the next rank
+    and its head to the previous one (a rank owning whole rows has no
+    such edge, so the halo from one channel's last shard never reaches the
+    next's). Returns (lefts, rights), one per stream: the (C_loc, left,
+    ...) tail received from the previous rank and the (C_loc, right, ...)
+    head from the next, None where this rank holds the row's end. Both
+    directions are separate transfers, as the reference's two
+    ppermutes."""
+    t0, t1 = mesh.times.start, mesh.times.stop
+    prev_rank = mesh.rank - 1 if t0 > 0 else None
+    next_rank = mesh.rank + 1 if t1 < mesh.n_time else None
+    plan = []
+    lefts, rights = [None] * len(xs), [None] * len(xs)
+    for s, x in enumerate(xs):
+        n = x.shape[1]
+        if next_rank is not None:       # my tail -> their left halo
+            plan.append(("send", x[:, n - left:].contiguous(), next_rank,
+                         _TAG_TAIL + s))
+        if prev_rank is not None:
+            lefts[s] = x.new_empty((x.shape[0], left) + x.shape[2:])
+            plan.append(("recv", lefts[s], prev_rank, _TAG_TAIL + s))
+        if prev_rank is not None:       # my head -> their right halo
+            plan.append(("send", x[:, :right].contiguous(), prev_rank,
+                         _TAG_HEAD + s))
+        if next_rank is not None:
+            rights[s] = x.new_empty((x.shape[0], right) + x.shape[2:])
+            plan.append(("recv", rights[s], next_rank, _TAG_HEAD + s))
+    _transfer(mesh, plan)
+    return lefts, rights
+
+
+def _assemble(mesh: Mesh, xs: Sequence[torch.Tensor], left: int, right: int,
+              lefts: Sequence[Optional[torch.Tensor]],
+              rights: Sequence[Optional[torch.Tensor]]) -> List[torch.Tensor]:
+    """Each stream as (C_loc, T_loc, L+N+R, ...): the left halo from the
+    previous time shard, the right halo from the next, the edges other
+    ranks sent (`_edge_exchange`) where given, else zeros at a channel's
+    first and last shard (the stream edges)."""
+    out = []
+    for v, lr, rr in zip(_views(mesh, xs), lefts, rights):
+        c_loc, t_loc, n = v.shape[:3]
         lh = v.new_zeros((c_loc, t_loc, left) + v.shape[3:])
         rh = v.new_zeros((c_loc, t_loc, right) + v.shape[3:])
         lh[:, 1:] = v[:, :-1, n - left:]
         rh[:, :-1] = v[:, 1:, :right]
-        lefts.append(lh)
-        rights.append(rh)
-    # one channel row spread over several ranks: the row's inner rank
-    # edges cross the group (a rank owning whole rows has no such edge,
-    # so the halo from one channel's last shard never reaches the next's)
-    t0, t1 = mesh.times.start, mesh.times.stop
-    prev_rank = mesh.rank - 1 if t0 > 0 else None
-    next_rank = mesh.rank + 1 if t1 < mesh.n_time else None
-    plan, fills = [], []
-    for s, v in enumerate(views):
-        n = v.shape[2]
-        if next_rank is not None:       # my tail -> their left halo
-            plan.append(("send", v[:, -1, n - left:].contiguous(),
-                         next_rank, _TAG_TAIL + s))
-        if prev_rank is not None:
-            buf = torch.empty_like(lefts[s][:, 0])
-            plan.append(("recv", buf, prev_rank, _TAG_TAIL + s))
-            fills.append((lefts[s], 0, buf))
-        if prev_rank is not None:       # my head -> their right halo
-            plan.append(("send", v[:, 0, :right].contiguous(), prev_rank,
-                         _TAG_HEAD + s))
-        if next_rank is not None:
-            buf = torch.empty_like(rights[s][:, -1])
-            plan.append(("recv", buf, next_rank, _TAG_HEAD + s))
-            fills.append((rights[s], -1, buf))
-    _transfer(mesh, plan)
-    for dst, t, buf in fills:
-        dst[:, t] = buf
-    return [torch.cat([lh, v, rh], dim=2)
-            for lh, v, rh in zip(lefts, views, rights)]
+        if lr is not None:
+            lh[:, 0] = lr
+        if rr is not None:
+            rh[:, -1] = rr
+        out.append(torch.cat([lh, v, rh], dim=2))
+    return out
+
+
+def _exchange_halos(mesh: Mesh, xs: Sequence[torch.Tensor], left: int,
+                    right: int) -> List[torch.Tensor]:
+    """Ring halo exchange along "time" within each channel: the transfers
+    between ranks, then the assembly. Returns each stream (C_loc,
+    T_loc*N, ...) as (C_loc, T_loc, L+N+R, ...), zeros at the stream
+    edges."""
+    return _assemble(mesh, xs, left, right,
+                     *_edge_exchange(mesh, xs, left, right))
 
 
 def _splice_ctx(mesh: Mesh, padded: torch.Tensor, lctx, rctx, left: int,
                 right: int) -> torch.Tensor:
     """The first/last time shards take their outer halo from the stream
     context instead of the ring's zeros. padded: (C_loc, T_loc, L+N+R,
-    ...); lctx/rctx: this rank's (C_loc, left/right, ...) context."""
-    if mesh.times.start == 0:
+    ...); lctx/rctx: this rank's (C_loc, left/right, ...) context, None
+    for none (zeros stay)."""
+    if mesh.times.start == 0 and lctx is not None:
         padded[:, 0, :left] = lctx
-    if mesh.times.stop == mesh.n_time:
+    if mesh.times.stop == mesh.n_time and rctx is not None:
         padded[:, -1, padded.shape[2] - right:] = rctx
     return padded
 
@@ -376,6 +421,135 @@ def _demod_planar(streams: Sequence[torch.Tensor], mesh: Mesh,
                       cfg.block_size)
 
 
+# --- the local steps: compiled, one captured graph per key on a card ---------
+
+@graphed(static_argnames=("mesh", "cfg", "ablate_halos", "pack"),
+         counters=LAUNCH_COUNTERS)
+def _f32_local(x, lctx, rctx, lrecv, rrecv, mesh: Mesh, cfg: DspConfig,
+               ablate_halos: bool = False, pack: bool = False,
+               device="cuda"):
+    """This rank's f32 step on its own tensors: x (C_loc, T_loc*N, 2) on
+    the mesh's device, the stream context lctx/rctx (C_loc, left/right,
+    2) or None (zeros), the edges received from other ranks or None
+    (`_edge_exchange`). The halo assembly (or, with ablate_halos, local
+    zeros), the context, `demod_block` per shard, the global indices, and
+    with pack the packed (C_loc, T_loc, K+1, 9) table."""
+    left, right = cfg.left_halo, cfg.right_halo
+    if ablate_halos:
+        v, = _views(mesh, [x])
+        padded = F.pad(v, (0, 0, left, right))
+    else:
+        padded, = _assemble(mesh, [x], left, right, [lrecv], [rrecv])
+    padded = _splice_ctx(mesh, padded, lctx, rctx, left, right)
+    table = _demod_f32(padded, mesh, cfg)
+    return pack_table(table) if pack else table
+
+
+@graphed(static_argnames=("mesh", "cfg", "tile", "pack"),
+         counters=LAUNCH_COUNTERS)
+def _planar_local(xi, xq, li, lq, ri, rq, lhi, lhq, rhi, rhq, mesh: Mesh,
+                  cfg: DspConfig, tile: int, pack: bool = False,
+                  device="cuda"):
+    """This rank's planar int8 step on its own tensors: xi/xq (C_loc,
+    T_loc*N), the stream context li/lq, ri/rq (C_loc, left/right) or None,
+    the edges received from other ranks lhi/lhq, rhi/rhq or None. The
+    halo assembly, the context, one `demod_batch_planar` call (B1 and B2
+    on a card), the global indices, and with pack the packed table."""
+    left, right = cfg.left_halo, cfg.right_halo
+    padded = _assemble(mesh, [xi, xq], left, right, [lhi, lhq], [rhi, rhq])
+    streams = [_splice_ctx(mesh, p, lc, rc, left, right)
+               for p, lc, rc in zip(padded, (li, lq), (ri, rq))]
+    table = _demod_planar(streams, mesh, cfg, tile)
+    return pack_table(table) if pack else table
+
+
+@graphed(static_argnames=("mesh", "cfg", "p", "q", "taps_per_phase",
+                          "planar", "tile", "demod"),
+         counters=LAUNCH_COUNTERS)
+def _resample_local(x, gain, l0, l1, r0, r1, mesh: Mesh, cfg: DspConfig,
+                    p: int, q: int, taps_per_phase: int, planar: bool,
+                    tile: Optional[int], demod: bool = True, device="cuda"):
+    """This rank's fused resample step on its own tensors: the raw-rate
+    shards x (C_loc, T_loc*raw_block, 2) f32, or planar (C_loc, 2,
+    T_loc*raw_block) with this rank's gain (a scalar or (C_loc,)); the
+    128q-sample edges received from other ranks l0/l1, r0/r1 (one per
+    stream; None where none). The resample halos, the group matmuls, the
+    int8 quantize (planar), then the demod (`_planar_local`,
+    `_f32_local`). demod=False stops at the channel-rate streams, (xi,
+    xq) int8 or y (C_loc, T_loc*block, 2): the front of a step whose
+    rows continue on other ranks, whose demod halos cross ranks between
+    two graphs."""
+    from ..resample.fused import quantize_i8
+    from ..resample.polyphase import resample_groups_halo
+    gi = 128 * q
+    c_loc, t_loc = mesh.local_shape
+    n_loc = c_loc * t_loc
+    if planar:
+        ri, rq = _assemble(mesh, [x[:, 0], x[:, 1]], gi, gi, [l0, l1],
+                           [r0, r1])
+        xc = torch.stack([ri, rq], dim=2).reshape(2 * n_loc, -1)
+        yc = resample_groups_halo(xc, p, q, taps_per_phase)
+        g = torch.as_tensor(gain, dtype=torch.float32, device=x.device)
+        gain_c = g.expand(c_loc) if g.ndim == 0 else g
+        y8 = quantize_i8(yc.reshape(c_loc, t_loc, 2, -1),
+                         gain_c[:, None, None, None])
+        xs = tuple(y8[:, :, k].reshape(c_loc, -1) for k in (0, 1))
+        if not demod:
+            return xs
+        return _planar_local(*xs, *(None,) * 8, mesh=mesh, cfg=cfg,
+                             tile=tile, device=device)
+    padded, = _assemble(mesh, [x], gi, gi, [l0], [r0])    # resample halos
+    xc = padded.reshape(n_loc, -1, 2).transpose(1, 2)
+    yc = resample_groups_halo(xc.reshape(2 * n_loc, -1), p, q,
+                              taps_per_phase)
+    y = yc.reshape(n_loc, 2, -1).transpose(1, 2)
+    y = y.reshape(c_loc, t_loc * cfg.block_size, 2)
+    if not demod:
+        return y
+    return _f32_local(y, *(None,) * 4, mesh=mesh, cfg=cfg, device=device)
+
+
+# --- the host fronts and the step factories ---------------------------------
+
+def _f32_front(mesh: Mesh, cfg: DspConfig, iq, lctx=None, rctx=None,
+               ablate_halos: bool = False) -> tuple:
+    """The host front of an f32 step: this rank's shards (a host array is
+    sharded here) and context on the device, checked, and the transfers
+    between ranks. Returns `_f32_local`'s tensor arguments."""
+    x = _place(iq, mesh, 1)
+    _check_local(x, mesh, cfg.block_size)
+    lh, rh = ([None], [None]) if ablate_halos else _edge_exchange(
+        mesh, [x], cfg.left_halo, cfg.right_halo)
+    return x, _ctx(lctx, mesh), _ctx(rctx, mesh), lh[0], rh[0]
+
+
+def _planar_front(mesh: Mesh, cfg: DspConfig, xi, xq, lctx=(None, None),
+                  rctx=(None, None)) -> tuple:
+    """The host front of a planar step (as `_f32_front`): returns
+    `_planar_local`'s tensor arguments."""
+    xs = [_place(xi, mesh, 1), _place(xq, mesh, 1)]
+    for x in xs:
+        _check_local(x, mesh, cfg.block_size)
+    lh, rh = _edge_exchange(mesh, xs, cfg.left_halo, cfg.right_halo)
+    return (*xs, *(_ctx(c, mesh) for c in lctx),
+            *(_ctx(c, mesh) for c in rctx), *lh, *rh)
+
+
+def _local_gain(gain, mesh: Mesh):
+    """This rank's quantization gain: a scalar as given, a (C,) vector
+    checked against the mesh and sliced to this rank's channels."""
+    g = gain if isinstance(gain, torch.Tensor) else np.asarray(gain,
+                                                               np.float32)
+    if g.ndim == 0:
+        return g
+    if g.shape[0] != mesh.n_channel:
+        # a wrong-length vector must fail, not reuse other channels'
+        # gains (wrong full_scale and dBFS)
+        raise ValueError(f"gain vector has {g.shape[0]} entries for "
+                         f"{mesh.n_channel} channels")
+    return g[mesh.channels.start: mesh.channels.stop]
+
+
 def make_sharded_demod(mesh: Mesh, cfg: DspConfig, *,
                        ablate_halos: bool = False):
     """The multi-shard demod step.
@@ -388,18 +562,11 @@ def make_sharded_demod(mesh: Mesh, cfg: DspConfig, *,
     ablate_halos=True replaces the halo exchange with local zeros:
     identical compute shape, no communication. MEASUREMENT ONLY (frames
     straddling shard edges are lost)."""
-    left, right = cfg.left_halo, cfg.right_halo
-
     def fn(iq):
-        x = _place(iq, mesh, 1)
-        _check_local(x, mesh, cfg.block_size)
-        if ablate_halos:
-            c_loc, t_loc = mesh.local_shape
-            v = x.reshape(c_loc, t_loc, -1, *x.shape[2:])
-            padded = F.pad(v, (0, 0, left, right))
-        else:
-            padded, = _exchange_halos(mesh, [x], left, right)
-        return _demod_f32(padded, mesh, cfg)
+        return _f32_local(*_f32_front(mesh, cfg, iq,
+                                      ablate_halos=ablate_halos),
+                          mesh=mesh, cfg=cfg, ablate_halos=ablate_halos,
+                          device=mesh.device)
 
     return fn
 
@@ -414,15 +581,9 @@ def make_sharded_demod_ctx(mesh: Mesh, cfg: DspConfig):
     exchange halos; the first/last time shards take their outer halo from
     the context, so a frame straddling two consecutive steps decodes once.
     Used by dist.multihost.PodPipeline."""
-    left, right = cfg.left_halo, cfg.right_halo
-
     def fn(iq, lctx, rctx):
-        x = _place(iq, mesh, 1)
-        _check_local(x, mesh, cfg.block_size)
-        padded, = _exchange_halos(mesh, [x], left, right)
-        padded = _splice_ctx(mesh, padded, _ctx(lctx, mesh),
-                             _ctx(rctx, mesh), left, right)
-        return _demod_f32(padded, mesh, cfg)
+        return _f32_local(*_f32_front(mesh, cfg, iq, lctx, rctx), mesh=mesh,
+                          cfg=cfg, device=mesh.device)
 
     return fn
 
@@ -437,14 +598,10 @@ def make_sharded_demod_planar(mesh: Mesh, cfg: DspConfig, tile: int = None):
     (N, 2) layout."""
     from ..kernels.preamble import default_tile
     tile = default_tile(cfg) if tile is None else tile
-    left, right = cfg.left_halo, cfg.right_halo
 
     def fn(xi, xq):
-        xs = [_place(xi, mesh, 1), _place(xq, mesh, 1)]
-        for x in xs:
-            _check_local(x, mesh, cfg.block_size)
-        return _demod_planar(_exchange_halos(mesh, xs, left, right), mesh,
-                             cfg, tile)
+        return _planar_local(*_planar_front(mesh, cfg, xi, xq), mesh=mesh,
+                             cfg=cfg, tile=tile, device=mesh.device)
 
     return fn
 
@@ -462,17 +619,12 @@ def make_sharded_demod_planar_ctx(mesh: Mesh, cfg: DspConfig,
     dist.multihost.PodPipeline(planar=True)."""
     from ..kernels.preamble import default_tile
     tile = default_tile(cfg) if tile is None else tile
-    left, right = cfg.left_halo, cfg.right_halo
 
     def fn(xi, xq, li, lq, ri, rq):
-        xs = [_place(xi, mesh, 1), _place(xq, mesh, 1)]
-        for x in xs:
-            _check_local(x, mesh, cfg.block_size)
-        padded = _exchange_halos(mesh, xs, left, right)
-        streams = [_splice_ctx(mesh, p, _ctx(lc, mesh), _ctx(rc, mesh),
-                               left, right)
-                   for p, lc, rc in zip(padded, (li, lq), (ri, rq))]
-        return _demod_planar(streams, mesh, cfg, tile)
+        return _planar_local(*_planar_front(mesh, cfg, xi, xq, (li, lq),
+                                            (ri, rq)),
+                             mesh=mesh, cfg=cfg, tile=tile,
+                             device=mesh.device)
 
     return fn
 
@@ -495,54 +647,46 @@ def make_sharded_resample_demod(mesh: Mesh, cfg: DspConfig, p: int, q: int,
     ONE-SHOT semantics: both stream edges read zeros. raw_block =
     cfg.block_size * q / p (cfg.block_size a multiple of 128p). Detection
     indices are global in the resampled (channel-rate) domain."""
-    from ..resample.fused import quantize_i8, raw_geometry
-    from ..resample.polyphase import resample_groups_halo
+    from ..resample.fused import raw_geometry
 
     gi = 128 * q
     raw_geometry(cfg, p, q)        # validates block alignment + pq cap
     raw_block = cfg.block_size * q // p
-    left, right = cfg.left_halo, cfg.right_halo
-    c_loc, t_loc = mesh.local_shape
-    n_loc = c_loc * t_loc
+    if planar:
+        from ..kernels.preamble import default_tile
+        tile = default_tile(cfg) if tile is None else tile
+    else:
+        tile = None
+    static = dict(mesh=mesh, cfg=cfg, p=p, q=q,
+                  taps_per_phase=taps_per_phase, planar=planar, tile=tile,
+                  device=mesh.device)
+    # this rank's channel rows continue on other ranks: the demod halos
+    # cross ranks after the resample
+    split = mesh.times.start > 0 or mesh.times.stop < mesh.n_time
 
     if not planar:
         def fn(iq):
             x = _place(iq, mesh, 1)
             _check_local(x, mesh, raw_block, "raw-rate time")
-            padded, = _exchange_halos(mesh, [x], gi, gi)   # resample halos
-            xc = padded.reshape(n_loc, -1, 2).transpose(1, 2)
-            yc = resample_groups_halo(xc.reshape(2 * n_loc, -1), p, q,
-                                      taps_per_phase)
-            y = yc.reshape(n_loc, 2, -1).transpose(1, 2)
-            y = y.reshape(c_loc, t_loc * cfg.block_size, 2)
-            padded, = _exchange_halos(mesh, [y], left, right)  # demod halos
-            return _demod_f32(padded, mesh, cfg)
+            (l0,), (r0,) = _edge_exchange(mesh, [x], gi, gi)
+            if not split:
+                return _resample_local(x, None, l0, None, r0, None, **static)
+            y = _resample_local(x, None, l0, None, r0, None, demod=False,
+                                **static)
+            return _f32_local(*_f32_front(mesh, cfg, y), mesh=mesh, cfg=cfg,
+                              device=mesh.device)
 
         return fn
-
-    from ..kernels.preamble import default_tile
-    tile = default_tile(cfg) if tile is None else tile
 
     def fn_planar(iqp, gain):
         x = _place(iqp, mesh, 2)
         _check_local(x, mesh, raw_block, "raw-rate time", dim=2)
-        g = torch.as_tensor(gain, dtype=torch.float32, device=mesh.device)
-        if g.ndim == 0:
-            gain_c = g.expand(c_loc)
-        else:
-            if g.shape[0] != mesh.n_channel:
-                # a wrong-length vector must fail, not reuse other
-                # channels' gains (wrong full_scale and dBFS)
-                raise ValueError(f"gain vector has {g.shape[0]} entries "
-                                 f"for {mesh.n_channel} channels")
-            gain_c = g[mesh.channels.start: mesh.channels.stop]
-        ri, rq = _exchange_halos(mesh, [x[:, 0], x[:, 1]], gi, gi)
-        xc = torch.stack([ri, rq], dim=2).reshape(2 * n_loc, -1)
-        yc = resample_groups_halo(xc, p, q, taps_per_phase)
-        y8 = quantize_i8(yc.reshape(c_loc, t_loc, 2, -1),
-                         gain_c[:, None, None, None])
-        xs = [y8[:, :, k].reshape(c_loc, -1) for k in (0, 1)]
-        return _demod_planar(_exchange_halos(mesh, xs, left, right), mesh,
-                             cfg, tile)
+        g = _local_gain(gain, mesh)
+        (l0, l1), (r0, r1) = _edge_exchange(mesh, [x[:, 0], x[:, 1]], gi, gi)
+        if not split:
+            return _resample_local(x, g, l0, l1, r0, r1, **static)
+        xi, xq = _resample_local(x, g, l0, l1, r0, r1, demod=False, **static)
+        return _planar_local(*_planar_front(mesh, cfg, xi, xq), mesh=mesh,
+                             cfg=cfg, tile=tile, device=mesh.device)
 
     return fn_planar

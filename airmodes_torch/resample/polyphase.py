@@ -22,7 +22,11 @@ for the same reason).
 
 Entry points (`resample`, `resample_planar`, `resample_to_rate`,
 `streaming_resampler`) take `device`, default "cuda": numpy or tensor input
-moves there, and without a card they raise.
+moves there, and without a card they raise. As the reference jits
+`resample`, `resample_planar` and the streaming stride, each runs as a
+compiled step (`utils.graphs`: one captured CUDA graph per key on a card,
+the function itself on the CPU), keyed on (p, q, taps), the device and
+the input's shape; `resample` keys on whether its input is complex too.
 
 Operational note: fractional-rate SDR captures (e.g. rtl-sdr 2.4 Msps)
 decode most robustly resampled UP to 4 Msps (2 samples/chip); at 2 Msps
@@ -41,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from ..dsp.pipeline import resolve_device
+from ..utils.graphs import graphed
 
 
 def design_lowpass(num_taps: int, cutoff: float, beta: float = 8.6,
@@ -231,10 +236,19 @@ def _resample2(x2: torch.Tensor, p: int, q: int, taps_per_phase: int):
 
 def resample_planar(xc, p: int, q: int, taps_per_phase: int = 12,
                     device="cuda") -> torch.Tensor:
-    """(C, N) planar f32 -> (C, floor(N*p/q)) on `device`."""
-    xc = _as_tensor(xc, resolve_device(device))
+    """(C, N) planar f32 -> (C, floor(N*p/q)) on `device`, a compiled
+    step (`_resample_planar_step`); p == q == 1 returns the input there."""
+    dev = resolve_device(device)
     if p == q == 1:
-        return xc
+        return _as_tensor(xc, dev)
+    return _resample_planar_step(xc, p, q, taps_per_phase, device=dev)
+
+
+@graphed(static_argnames=("p", "q", "taps_per_phase"))
+def _resample_planar_step(xc, p: int, q: int, taps_per_phase: int,
+                          device="cuda") -> torch.Tensor:
+    """`resample_planar`'s compiled step."""
+    xc = _as_tensor(xc, resolve_device(device))
     if p * q <= _GROUP_PQ_CAP:
         return _resample_groups(xc, p, q, taps_per_phase)
     return _resample_cols(xc.T, p, q, taps_per_phase).T
@@ -244,10 +258,36 @@ def resample(x, p: int, q: int, taps_per_phase: int = 12,
              device="cuda") -> torch.Tensor:
     """Resample by rational p/q on `device`. Accepts float (N,), complex
     (N,) or float32 (N, 2) I/Q (each component filtered); returns a tensor
-    of the same layout (complex64 for complex input)."""
-    x = _as_tensor(x, resolve_device(device))
+    of the same layout (complex64 for complex input), from a compiled step
+    (`_resample_step`)."""
+    dev = resolve_device(device)
     if p == q == 1:
-        return x
+        return _as_tensor(x, dev)
+    if not isinstance(x, torch.Tensor):
+        x = np.asarray(x)
+    is_complex = x.is_complex() if isinstance(x, torch.Tensor) \
+        else np.iscomplexobj(x)
+    if not is_complex:
+        if x.ndim == 2 and x.shape[-1] != 2:
+            raise ValueError(
+                f"resample() takes 1-D complex, (N, 2) I/Q, or 1-D real "
+                f"input; got shape {tuple(x.shape)} — for planar (2, N) "
+                f"streams use the planar/streaming entry points")
+        if x.ndim not in (1, 2):
+            raise ValueError(f"resample() input must be 1-D or (N, 2), got "
+                             f"shape {tuple(x.shape)}")
+    return _resample_step(x, p, q, taps_per_phase, is_complex, device=dev)
+
+
+@graphed(static_argnames=("p", "q", "taps_per_phase", "complex_in"))
+def _resample_step(x, p: int, q: int, taps_per_phase: int, complex_in: bool,
+                   device="cuda") -> torch.Tensor:
+    """`resample`'s compiled step. A complex64 input reaches a graph as its
+    (N, 2) f32 view (`utils.graphs`), so complex_in, part of the key,
+    says to read it as complex again: complex in, complex64 out."""
+    x = _as_tensor(x, resolve_device(device))
+    if complex_in and not x.is_complex():
+        x = torch.view_as_complex(x)
     if x.is_complex():
         xc = torch.stack([x.real, x.imag])                  # (2, N) planar
         if p * q <= _GROUP_PQ_CAP:
@@ -256,15 +296,7 @@ def resample(x, p: int, q: int, taps_per_phase: int = 12,
             yc = _resample_cols(xc.T, p, q, taps_per_phase).T
         return torch.complex(yc[0], yc[1])
     if x.ndim == 2:
-        if x.shape[-1] == 2:
-            return _resample2(x, p, q, taps_per_phase)
-        raise ValueError(
-            f"resample() takes 1-D complex, (N, 2) I/Q, or 1-D real "
-            f"input; got shape {tuple(x.shape)} — for planar (2, N) "
-            f"streams use the planar/streaming entry points")
-    if x.ndim != 1:
-        raise ValueError(f"resample() input must be 1-D or (N, 2), got "
-                         f"shape {tuple(x.shape)}")
+        return _resample2(x, p, q, taps_per_phase)
     return _resample2(x[:, None], p, q, taps_per_phase)[:, 0]
 
 
@@ -289,6 +321,22 @@ def resample_to_rate(x, in_rate: float, out_rate: float,
     return resample(x, p, q, taps_per_phase, device=device)
 
 
+@graphed(static_argnames=("p", "q", "t", "S"))
+def _streaming_kernel(block2, p: int, q: int, t: int, S: int,
+                      device="cuda") -> torch.Tensor:
+    """One streaming stride as a compiled step: block2 (hist + stride, 2)
+    f32 I/Q -> (2, S * 128p) planar. Local input groups 0..S+1 are global
+    groups sS-2..sS+S-1; output group sS-1+j takes locals j, j+1, j+2:
+    the offline path's matmuls against the same globally aligned groups.
+    Module-level, so resamplers with equal (p, q, t, S) share one graph,
+    as they share the reference's one compiled program."""
+    x = _as_tensor(block2, resolve_device(device))
+    if x.shape != ((S + 2) * 128 * q, 2):
+        raise ValueError(f"_streaming_kernel: block of shape "
+                         f"{tuple(x.shape)}, not ({(S + 2) * 128 * q}, 2)")
+    return resample_groups_halo(_to_planar(x), p, q, t)
+
+
 class streaming_resampler:
     """Stateful chunked resampler for live sources: push(chunk) consumes
     arbitrary-length complex64 numpy chunks and returns (as numpy
@@ -296,7 +344,7 @@ class streaming_resampler:
     history carries across calls, and the tail appears after flush().
 
     Strides are whole 128q-sample input groups aligned with the offline
-    `resample`'s groups, and each stride is one `resample_groups_halo` call
+    `resample`'s groups, and each stride is one `_streaming_kernel` call
     on `device` (one copy over, three matmuls, one copy back) against the
     same group values, so the concatenated output equals the offline
     resample of the concatenated input from sample 0, to the matmuls'
@@ -334,12 +382,12 @@ class streaming_resampler:
         self._n_emitted = 0                       # samples returned so far
 
     def _kernel(self, block: np.ndarray) -> np.ndarray:
-        """One stride: (hist + stride,) complex64 -> (s_groups * 128p,).
-        Local input groups 0..S+1 are global groups sS-2..sS+S-1; output
-        group sS-1+j takes locals j, j+1, j+2."""
+        """One stride: (hist + stride,) complex64 -> (s_groups * 128p,),
+        through the compiled `_streaming_kernel`; the read-back stays
+        here, on the host."""
         x = torch.from_numpy(block.view(np.float32).reshape(-1, 2))
-        y2 = resample_groups_halo(_to_planar(x.to(self.dev)), self.p,
-                                  self.q, self.t).cpu().numpy()
+        y2 = _streaming_kernel(x, self.p, self.q, self.t, self.s_groups,
+                               device=self.dev).cpu().numpy()
         y = np.empty(y2.shape[1], np.complex64)
         y.real, y.imag = y2[0], y2[1]
         return y

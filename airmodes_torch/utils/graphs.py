@@ -47,6 +47,9 @@ Semantics of a call:
   and each replay adds them again.
 - **Nesting.** A graphed function called while another one warms up or
   captures runs inline, as a jitted function called inside a jit does.
+  Inside `with disable():` every graphed call of the thread runs its
+  function eagerly, as under `jax.disable_jit()`: the eager step that a
+  measurement or a check holds a graph against.
 - **No fallback.** A capture or replay that fails raises; nothing runs the
   eager step on the card in its place.
 - **Memory.** Each graph keeps a private memory pool (its intermediates
@@ -167,6 +170,12 @@ def _inline():
         yield
     finally:
         _local.inline -= 1
+
+
+def disable():
+    """Context manager: graphed calls in this thread run their functions
+    eagerly, on any device, launch by launch (`jax.disable_jit()`)."""
+    return _inline()
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -372,4 +381,5 @@ def graphed(static_argnames: Iterable[str] = (),
     return wrap
 
 
-__all__ = ["CudaGraph", "DEBUG", "Graphed", "MAX_GRAPHS", "graphed"]
+__all__ = ["CudaGraph", "DEBUG", "Graphed", "MAX_GRAPHS", "disable",
+           "graphed"]

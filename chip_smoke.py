@@ -74,7 +74,10 @@ process per source, all at once), then:
      launch and every DF decode at >= 99%; prints the device step, the
      group matmuls' share of it, the host-to-card copy and the end-to-end
      rate; then the host path (the streaming resampler on the card ->
-     `run_pipelined`) over 8 blocks, and its rate;
+     `run_pipelined`) over 8 blocks, and its rate; the streaming
+     resampler with its stride eager and graphed (the same samples bit
+     for bit), its rate and one stride's time each way, as the host sees
+     it and on the card alone;
  14. runs the CLI in-process, `airmodes_torch.apps.modes_rx.main`, with
      --int8 on phase 6's uc8 capture (the native runner), -r 10e6 --int8
      on phase 13's capture (the fused path) and with two of phase 12's
@@ -94,7 +97,9 @@ process per source, all at once), then:
      resample -> int8 -> planar step on a (1, 4) mesh at a fixed gain
      from 10 Msps (== the CPU's and the unsharded fused step's, under
      phase 13's contract), and the (1, 4) planar step through a one-rank
-     NCCL process group (== the local mesh's tables);
+     NCCL process group (== the local mesh's tables); `step3_fn` eager
+     against graphed (equal bit for bit), each as the host sees it and on
+     the card alone, and both profiled;
  16. runs the probes (`airmodes_torch.probes`) at their TPU scripts' sizes:
      P1-P3 (copy and bulk-copy reads over 1 GiB of f32; first also at
      2^21 - 3, 1000 and 100 rows: a ragged tail, fewer windows than SMs,
@@ -144,8 +149,15 @@ process per source, all at once), then:
      launches per replay, its graph's kernel nodes by symbol, and its step
      time eager against graphed; the graphed int8 and f32 steps'
      profiles; and that the noise floor's scan of one row gives one
-     result every run (fault C3), beside torch.cumsum's. Phases 6, 7 and 11-14 and 19 run the runners and the bench,
-     whose steps are these graphs;
+     result every run (fault C3), beside torch.cumsum's. Then the same
+     for `dist/` and the resampler: the six sharded factories' local
+     steps on phase 15's (2, 4) mesh (the resample ones at 10 -> 2 Msps),
+     each factory's step == its graph's eager step; the (1, 4) planar
+     step through a one-rank NCCL group; `PodPipeline.step3_fn`, planar
+     and f32; the streaming resampler's stride and `resample` on complex
+     input; the (1, 1) f32 sharded step on one block, 20 replays equal.
+     Phases 6, 7, 11-15 and 19 run the runners, the pipeline and the
+     bench, whose steps are these graphs;
  21. prints one JSON line of per-kernel numbers, the card line, and last
      {"ok": true, "device": {...}}.
 
@@ -1482,8 +1494,10 @@ def phase_resampled(cfg, dev, tmp, smi):
     from airmodes_torch.io import sources, stream as S
     from airmodes_torch.kernels import preamble as K
     from airmodes_torch.resample import fused as RF
+    from airmodes_torch.resample import polyphase as PP
     from airmodes_torch.resample.polyphase import (rational_rate,
                                                    streaming_resampler)
+    from airmodes_torch.utils import graphs
     print(f"resampled: TF32 {torch.backends.cuda.matmul.allow_tf32} "
           f"(matmul), {torch.backends.cudnn.allow_tf32} (cuDNN); f32 "
           f"matmul precision {torch.get_float32_matmul_precision()!r}",
@@ -1573,13 +1587,46 @@ def phase_resampled(cfg, dev, tmp, smi):
     # runner, over the capture's first 8 blocks
     n_host = BATCH
     raw = np.fromfile(path, np.complex64, n_host * cfg.block_size * q // p)
-    rs = streaming_resampler(p, q, device=dev)
-    t0 = time.perf_counter()
-    got = sum(len(rs.push(raw[i: i + (1 << 20)]))
-              for i in range(0, len(raw), 1 << 20)) + len(rs.flush())
-    rs_wall = time.perf_counter() - t0
-    if got != len(raw) * p // q:
-        raise AssertionError(f"streaming_resampler gave {got} samples")
+
+    def streamed():
+        """The capture through a fresh streaming resampler in 2^20-sample
+        pushes: (output, wall s)."""
+        rs = streaming_resampler(p, q, device=dev)
+        t0 = time.perf_counter()
+        out = [rs.push(raw[i: i + (1 << 20)])
+               for i in range(0, len(raw), 1 << 20)] + [rs.flush()]
+        return np.concatenate(out), time.perf_counter() - t0, rs
+
+    streamed()                 # captures the stride's graph
+    with graphs.disable():
+        y_eager, eager_wall, _ = streamed()
+    y, rs_wall, rs = streamed()
+    if len(y) != len(raw) * p // q:
+        raise AssertionError(f"streaming_resampler gave {len(y)} samples")
+    if not np.array_equal(y, y_eager):
+        raise AssertionError("streaming_resampler: the graphed stride != "
+                             "the eager stride")
+    blk = np.concatenate([np.zeros(rs.hist, np.complex64), raw[:rs.stride]])
+    xb = torch.from_numpy(blk.view(np.float32).reshape(-1, 2)).to(dev)
+
+    def stride():
+        return PP._streaming_kernel(xb, p, q, rs.t, rs.s_groups, device=dev)
+
+    def stride_eager():
+        with graphs.disable():
+            return stride()
+    st = {"eager": time_ms(stride_eager, device_only=False),
+          "graphed": time_ms(stride, device_only=False),
+          "eager card": time_ms(stride_eager),
+          "graphed card": time_ms(stride)}
+    print(f"resampled: streaming_resampler, eager stride "
+          f"{len(raw) / eager_wall / 1e6:.2f} Msps raw ({eager_wall:.3f} "
+          f"s), graphed stride "
+          f"{len(raw) / rs_wall / 1e6:.2f} Msps raw, the same samples bit "
+          f"for bit; one stride of {rs.stride} raw samples as the host sees "
+          f"it: eager {st['eager']:.4f} ms, graphed {st['graphed']:.4f} ms; "
+          f"card alone: eager {st['eager card']:.4f} ms, graphed "
+          f"{st['graphed card']:.4f} ms [{smi}]", flush=True)
     t0 = time.perf_counter()
     host_msgs = _messages(S.run_pipelined(
         itertools.islice(sources.resampled_file_source(
@@ -1810,6 +1857,7 @@ def phase_sharded(cfg, dev, tmp, smi):
     from airmodes_torch.kernels import preamble as K
     from airmodes_torch.resample import fused as RF
     from airmodes_torch.resample.polyphase import rational_rate
+    from airmodes_torch.utils import graphs
 
     n_ch, n_t = SHARDED_MESH
     t0 = time.perf_counter()
@@ -1895,7 +1943,22 @@ def phase_sharded(cfg, dev, tmp, smi):
     dv = [sharded.shard_input_planar(i, q, pipe.mesh) for i, q in
           zip(qs, qq)]
     args = (dv[0][0], dv[0][1], dv[1][0], dv[1][1], dv[2][0], dv[2][1])
+
+    def eager3():
+        with graphs.disable():
+            return pipe.step3_fn(*args)
+    if not torch.equal(eager3(), pipe.step3_fn(*args)):
+        raise AssertionError("sharded: the graphed step3_fn != its eager "
+                             "step")
     step_ms = time_ms(lambda: pipe.step3_fn(*args), device_only=False)
+    st = {"eager": time_ms(eager3, device_only=False),
+          "eager card": time_ms(eager3),
+          "graphed card": time_ms(lambda: pipe.step3_fn(*args))}
+    print(f"sharded: step3_fn as the host sees it: eager {st['eager']:.4f} "
+          f"ms, graphed {step_ms:.4f} ms; card alone: eager "
+          f"{st['eager card']:.4f} ms, graphed {st['graphed card']:.4f} ms "
+          f"(the graphed step == the eager one bit for bit) [{smi}]",
+          flush=True)
     bi = torch.from_numpy(np.concatenate(
         [xi[c * n_blocks + n_t: c * n_blocks + 2 * n_t] for c in range(2)]
     )).to(dev)
@@ -1905,7 +1968,9 @@ def phase_sharded(cfg, dev, tmp, smi):
     flat_ms = time_ms(lambda: K.demod_batch_packed_planar(bi, bq, cfg,
                                                           device=dev),
                       device_only=False)
-    print("sharded: the profile of the sharded step", flush=True)
+    print("sharded: the profile of the eager sharded step", flush=True)
+    profile_step(eager3, smi, expect=B1_B2_SYMBOLS)
+    print("sharded: the profile of the graphed sharded step", flush=True)
     rows = [profile_step(lambda: pipe.step3_fn(*args), smi,
                          expect=B1_B2_SYMBOLS)]
     print("sharded: the profile of the unsharded 8-block step", flush=True)
@@ -1914,8 +1979,9 @@ def phase_sharded(cfg, dev, tmp, smi):
         expect=B1_B2_SYMBOLS))
     if all(rows):
         busy = [sum(r[0] for r in rs) / 5 for rs in rows]
-        print(f"sharded: device busy {busy[0]:.1f} us per sharded step, "
-              f"{busy[1]:.1f} us per unsharded step [{smi}]", flush=True)
+        print(f"sharded: device busy {busy[0]:.1f} us per sharded step "
+              f"(graphed), {busy[1]:.1f} us per unsharded step [{smi}]",
+              flush=True)
     n_s = n_ch * S
     print(f"sharded: step {step_ms:.4f} ms ({n_s / step_ms / 1e3:.1f} Msps) "
           f"against the unsharded 8-block step {flat_ms:.4f} ms, both as "
@@ -1952,11 +2018,14 @@ def phase_sharded(cfg, dev, tmp, smi):
     gain = np.float32(120.0)
     mesh14 = sharded.make_mesh(1, 4, device=dev)
     fn = sharded.make_sharded_resample_demod(mesh14, cfg, p, q, planar=True)
+    shards = sharded.shard_input_resample_planar(iqp, mesh14)
+    fn(shards, gain)           # captures the step's graph
     K.reset_launches()
-    table = fn(sharded.shard_input_resample_planar(iqp, mesh14), gain)
+    table = fn(shards, gain)
     rs_msgs = _table_messages(table, cfg, float(gain) / 127.0)
     if K.DETECT_CANDS_ROUTES["B1"] != 1 or K.LAUNCHES["slice_windows"] != 1:
-        raise AssertionError("sharded resample: B1 and B2 must launch once")
+        raise AssertionError("sharded resample: B1 and B2 must launch once "
+                             "per replay")
     cpu14 = sharded.make_mesh(1, 4, device="cpu")
     rs_cpu = _table_messages(sharded.make_sharded_resample_demod(
         cpu14, cfg, p, q, planar=True)(
@@ -2921,6 +2990,290 @@ def _packed_vs_cpu(rtol):
     return check
 
 
+def _local_eager(fn, meshes):
+    """The eager function of a sharded local step (`fn.fn`, fn a graphed
+    `dist.sharded._*_local`), called on the mesh of the call's device
+    (meshes: {"cuda": card mesh, "cpu": CPU mesh}), its tensors moved
+    there."""
+    import torch
+
+    def eager(*args, device, **kw):
+        mesh = meshes[torch.device(device).type]
+        args = [a.to(mesh.device) if isinstance(a, torch.Tensor) else a
+                for a in args]
+        return fn.fn(*args, **dict(kw, mesh=mesh), device=mesh.device)
+    return eager
+
+
+def _table_vs_cpu(rtol):
+    """A cpu_check of sharded (C, T) DetectionTables: packed, then
+    _packed_vs_cpu."""
+    def check(card, cpu):
+        from airmodes_torch.dsp.pipeline import DetectionTable, pack_table
+        return _packed_vs_cpu(rtol)([pack_table(DetectionTable(*card))],
+                                    [pack_table(DetectionTable(*cpu))])
+    return check
+
+
+def _messages_vs_cpu(cfg, full_scale, what):
+    """A cpu_check of sharded resample tables: phase 13's contract, the
+    same messages field by field, ref_dbfs within 0.1 dB."""
+    def check(card, cpu):
+        from airmodes_torch.dsp.pipeline import DetectionTable
+        worst = _same_messages(
+            _table_messages(DetectionTable(*card), cfg, full_scale),
+            _table_messages(DetectionTable(*cpu), cfg, full_scale), what)
+        return (f"== CPU (messages field by field, ref_dbfs within "
+                f"{worst:.2f} dB)")
+    return check
+
+
+def _close_vs_cpu(what):
+    """A cpu_check of resampler output (f32 or complex64): within 1e-5 of
+    the CPU's largest magnitude, sample by sample (cuBLAS and the CPU sum
+    each output's products in other orders)."""
+    def check(card, cpu):
+        import numpy as np
+        a, b = card[0].numpy(), cpu[0].numpy()
+        err = float(np.abs(a - b).max())
+        peak = float(np.abs(b).max())
+        if a.shape != b.shape or a.dtype != b.dtype or err > 1e-5 * peak:
+            raise AssertionError(f"graphs: {what}: card vs CPU "
+                                 f"{a.shape} {a.dtype} / {b.shape} "
+                                 f"{b.dtype}, max |diff| {err:.3g} of a "
+                                 f"peak {peak:.3g}")
+        return (f"== CPU within {err / peak:.2e} of the peak ({a.dtype}, "
+                f"{a.shape})")
+    return check
+
+
+def phase_graphs_dist(cfg, dev, tmp, smi):
+    """Phase 20's compiled steps of `dist/` and the resampler: each
+    sharded factory's local step on phase 15's (2, 4) mesh (the
+    resample steps at 10 -> 2 Msps from phase 13's capture), the one-rank
+    NCCL mesh's planar step, `PodPipeline.step3_fn` planar and f32,
+    `_streaming_kernel` and `resample` on complex input, each through
+    _graph_case; every factory's step (and step3_fn, and `resample`)
+    equal to its graph's eager step; the (1, 1) f32 step on one block 20
+    times (fault C3). Returns the per-case timings."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from airmodes_torch.dist import sharded
+    from airmodes_torch.dist.multihost import PodPipeline
+    from airmodes_torch.dsp import host
+    from airmodes_torch.dsp.pipeline import iq_to_device_layout
+    from airmodes_torch.kernels import preamble as K
+    from airmodes_torch.resample import polyphase as PP
+    from airmodes_torch.resample.polyphase import rational_rate
+    from airmodes_torch.utils import graphs
+
+    out = {}
+    b1_b2 = {"detect_chunk_kernel", "merge_unordered_kernel",
+             "slice_windows_kernel"}
+    counted = ("detect_cands", "slice_windows")
+    n_ch, n_t = SHARDED_MESH
+    mesh = sharded.make_mesh(n_ch, n_t, device=dev)
+    meshes = {"cuda": mesh, "cpu": sharded.make_mesh(n_ch, n_t,
+                                                     device="cpu")}
+    tile = K.default_tile(cfg)
+    left, right = cfg.left_halo, cfg.right_halo
+    S = n_t * cfg.block_size
+    x, _ = sharded_capture(cfg, 3, n_t, 0, 51)
+    steps = [np.ascontiguousarray(x[:, k * S: (k + 1) * S]) for k in range(3)]
+    f32 = [iq_to_device_layout(st) for st in steps]
+    q8 = [(host.quantize_i8_np(st.real, 120.0),
+           host.quantize_i8_np(st.imag, 120.0)) for st in steps]
+
+    def ctx(k):
+        """Step k's stream context: zeros before the stream."""
+        lc = x[:, k * S - left: k * S] if k else np.zeros((n_ch, left),
+                                                          np.complex64)
+        return (np.ascontiguousarray(lc),
+                np.ascontiguousarray(x[:, (k + 1) * S: (k + 1) * S + right]))
+
+    def check_factory(what, fn, eager_out, *args):
+        """The factory's step on host arrays: one replay, the eager
+        step's tables bit for bit."""
+        r0 = (sharded._f32_local.replays, sharded._planar_local.replays,
+              sharded._resample_local.replays)
+        got = fn(*args)
+        r1 = (sharded._f32_local.replays, sharded._planar_local.replays,
+              sharded._resample_local.replays)
+        if sum(r1) - sum(r0) != 1 or not all(
+                torch.equal(a, b) for a, b in zip(got, eager_out)):
+            raise AssertionError(f"graphs: {what}: the factory's step != "
+                                 f"its graph's eager step")
+
+    # the f32 and planar steps, without and with step context
+    for name, ctx_on in (("make_sharded_demod", False),
+                         ("make_sharded_demod_ctx", True)):
+        a = [sharded._f32_front(mesh, cfg, f32[k],
+                                *(iq_to_device_layout(c) for c in ctx(k))
+                                if ctx_on else ())
+             for k in (0, 1)]
+        kw = {"mesh": mesh, "cfg": cfg}
+        eager = _local_eager(sharded._f32_local, meshes)
+        out[name], _ = _graph_case(
+            f"{name} (2, 4), f32 (no hand kernel)", sharded._f32_local,
+            eager, a[0], a[1], kw, dev, smi, _table_vs_cpu(1e-4), set(), ())
+        fn = getattr(sharded, name)(mesh, cfg)
+        args = (f32[1],) + (tuple(iq_to_device_layout(c) for c in ctx(1))
+                            if ctx_on else ())
+        check_factory(name, fn, eager(*a[1], **kw, device=dev), *args)
+    for name, ctx_on in (("make_sharded_demod_planar", False),
+                         ("make_sharded_demod_planar_ctx", True)):
+        def planar_ctx(k):
+            (li, ri) = (host.quantize_i8_np(c.real, 120.0) for c in ctx(k))
+            (lq, rq) = (host.quantize_i8_np(c.imag, 120.0) for c in ctx(k))
+            return (li, lq), (ri, rq)
+        a = [sharded._planar_front(mesh, cfg, *q8[k],
+                                   *(planar_ctx(k) if ctx_on else ()))
+             for k in (0, 1)]
+        kw = {"mesh": mesh, "cfg": cfg, "tile": tile}
+        eager = _local_eager(sharded._planar_local, meshes)
+        out[name], _ = _graph_case(
+            f"{name} (2, 4), planar", sharded._planar_local, eager, a[0],
+            a[1], kw, dev, smi, _table_vs_cpu(1e-5), b1_b2, counted)
+        fn = getattr(sharded, name)(mesh, cfg)
+        (li, lq), (ri, rq) = planar_ctx(1)
+        args = q8[1] + ((li, lq, ri, rq) if ctx_on else ())
+        check_factory(name, fn, eager(*a[1], **kw, device=dev), *args)
+
+    # the fused resample steps at 10 -> 2 Msps: channel c of input k holds
+    # phase 13's raw blocks 8k + 4c .. 8k + 4c + 3
+    p, q = rational_rate(RESAMPLED_RATE, cfg.channel_rate)
+    rb = cfg.block_size * q // p
+    raw = np.fromfile(os.path.join(tmp, "resampled.c64"), np.complex64,
+                      16 * rb).reshape(2, n_ch, n_t * rb)
+    gain = np.asarray(120.0 / float(np.abs(raw).max()), np.float32)
+    for planar in (False, True):
+        name = f"make_sharded_resample_demod ({'planar' if planar else 'f32'})"
+        arrs = ([np.stack([r.real, r.imag], axis=1).astype(np.float32)
+                 for r in raw] if planar else
+                [iq_to_device_layout(r) for r in raw])
+        a = [(sharded._place(arr, mesh, 2 if planar else 1),
+              sharded._local_gain(gain, mesh) if planar else None,
+              None, None, None, None) for arr in arrs]
+        kw = {"mesh": mesh, "cfg": cfg, "p": p, "q": q, "taps_per_phase": 12,
+              "planar": planar, "tile": tile if planar else None}
+        eager = _local_eager(sharded._resample_local, meshes)
+        fs = float(gain) / 127.0 if planar else 1.0
+        out[name], _ = _graph_case(
+            f"{name} (2, 4), 10 -> 2 Msps", sharded._resample_local, eager,
+            a[0], a[1], kw, dev, smi, _messages_vs_cpu(cfg, fs, name),
+            b1_b2 if planar else set(), counted if planar else ())
+        fn = sharded.make_sharded_resample_demod(mesh, cfg, p, q,
+                                                 planar=planar)
+        check_factory(name, fn, eager(*a[1], **kw, device=dev),
+                      *((arrs[1], gain) if planar else (arrs[1],)))
+    del raw, arrs, a
+
+    # the (1, 4) planar step through a one-rank NCCL group
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dist.init_process_group("nccl", store=dist.HashStore(), world_size=1,
+                            rank=0)
+    try:
+        nccl = sharded.make_mesh(1, 4, group=dist.group.WORLD, device=dev)
+        a = [sharded._planar_front(nccl, cfg, q8[k][0][:1], q8[k][1][:1])
+             for k in (0, 1)]
+        out["nccl"], _ = _graph_case(
+            "make_sharded_demod_planar, one-rank NCCL mesh (1, 4)",
+            sharded._planar_local, _local_eager(
+                sharded._planar_local,
+                {"cuda": nccl, "cpu": sharded.make_mesh(1, 4, device="cpu")}),
+            a[0], a[1], {"mesh": nccl, "cfg": cfg, "tile": tile}, dev, smi,
+            _table_vs_cpu(1e-5), b1_b2, counted)
+    finally:
+        dist.destroy_process_group()
+
+    # PodPipeline.step3_fn: the stream context sliced from the steps
+    # around, outside the graph; the packed local step inside it
+    for planar in (True, False):
+        mode = "planar" if planar else "f32"
+        pipe = PodPipeline(cfg, n_ch, n_t, planar=planar, device=dev)
+        if planar:
+            dv = [sharded.shard_input_planar(*qk, pipe.mesh) for qk in q8]
+            zero = tuple(torch.zeros_like(t) for t in dv[0])
+            triples = [(zero, dv[0], dv[1]), (dv[0], dv[1], dv[2])]
+            step3 = [(*pv, *cu, *nx) for pv, cu, nx in triples]
+            a = []
+            for pv, cu, nx in triples:
+                (li, lq), (ri, rq) = sharded._stream_edges(
+                    pipe.mesh, pv, nx, left, right)
+                a.append(sharded._planar_front(pipe.mesh, cfg, *cu,
+                                               (li, lq), (ri, rq)))
+            fn, kw = sharded._planar_local, {"tile": tile}
+        else:
+            dv = [sharded.shard_input(fk, pipe.mesh) for fk in f32]
+            triples = [(torch.zeros_like(dv[0]), dv[0], dv[1]),
+                       (dv[0], dv[1], dv[2])]
+            step3 = triples
+            a = []
+            for pv, cu, nx in triples:
+                (lc,), (rc,) = sharded._stream_edges(pipe.mesh, (pv,), (nx,),
+                                                     left, right)
+                a.append(sharded._f32_front(pipe.mesh, cfg, cu, lc, rc))
+            fn, kw = sharded._f32_local, {}
+        kw.update(mesh=pipe.mesh, cfg=cfg, pack=True)
+        eager = _local_eager(fn, {"cuda": pipe.mesh, "cpu": meshes["cpu"]})
+        out[f"step3_fn {mode}"], _ = _graph_case(
+            f"PodPipeline.step3_fn, {mode}", fn, eager, a[0], a[1], kw, dev,
+            smi, _packed_vs_cpu(1e-5 if planar else 1e-4),
+            b1_b2 if planar else set(), counted if planar else ())
+        r0 = fn.replays
+        got = pipe.step3_fn(*step3[1])
+        if fn.replays != r0 + 1 or not torch.equal(
+                got, eager(*a[1], **kw, device=dev)):
+            raise AssertionError(f"graphs: PodPipeline.step3_fn ({mode}) "
+                                 f"!= its graph's eager step")
+    del dv, a, step3, triples
+
+    # fault C3 on the sharded path: the (1, 1) f32 step scans one row
+    one = sharded.make_sharded_demod(sharded.make_mesh(1, 1, device=dev),
+                                     cfg)
+    blk = np.ascontiguousarray(f32[0][:1, :cfg.block_size])
+    runs = [one(blk) for _ in range(20)]
+    with graphs.disable():
+        eager1 = one(blk)
+    same = sum(all(torch.equal(a, b) for a, b in zip(runs[0], r))
+               for r in runs)
+    print(f"graphs: the (1, 1) f32 sharded step on one block, 20 replays: "
+          f"{same} of 20 equal to the first; == the eager step: "
+          f"{all(torch.equal(a, b) for a, b in zip(runs[0], eager1))} "
+          f"[{smi}]", flush=True)
+    if same != 20 or not all(torch.equal(a, b)
+                             for a, b in zip(runs[0], eager1)):
+        raise AssertionError("graphs: the (1, 1) f32 sharded step is not "
+                             "deterministic (fault C3)")
+    del runs, x, steps, f32, q8
+
+    # the streaming resampler's stride and resample on complex input
+    rs = PP.streaming_resampler(p, q, device=dev)
+    n = rs.hist + rs.stride
+    raw = np.fromfile(os.path.join(tmp, "resampled.c64"), np.complex64,
+                      2 << 22)
+    blocks = [raw[k * n: (k + 1) * n].view(np.float32).reshape(n, 2)
+              for k in (0, 1)]
+    out["_streaming_kernel"], _ = _graph_case(
+        f"streaming_resampler stride (_streaming_kernel, {rs.stride} raw "
+        f"samples)", PP._streaming_kernel, PP._streaming_kernel.fn,
+        (blocks[0],), (blocks[1],),
+        {"p": p, "q": q, "t": rs.t, "S": rs.s_groups}, dev, smi,
+        _close_vs_cpu("_streaming_kernel"), set(), ())
+    xs = [np.ascontiguousarray(raw[k << 22: (k + 1) << 22]) for k in (0, 1)]
+    kw = {"p": p, "q": q, "taps_per_phase": 12, "complex_in": True}
+    out["resample"], _ = _graph_case(
+        "resample, complex64 input of 2^22 samples", PP._resample_step,
+        PP._resample_step.fn, (xs[0],), (xs[1],), kw, dev, smi,
+        _close_vs_cpu("resample"), set(), ())
+    got = PP.resample(xs[1], p, q, device=dev)
+    if got.dtype != torch.complex64 or not torch.equal(
+            got, PP._resample_step.fn(xs[1], **kw, device=dev)):
+        raise AssertionError("graphs: resample (complex) != its eager step")
+    return out
+
+
 def phase_graphs(cfg, dev, tmp, smi):
     """Phase 20: every compiled step (the `*_jit` entry points, captured
     CUDA graphs) held on the card against its eager function and the
@@ -3049,6 +3402,8 @@ def phase_graphs(cfg, dev, tmp, smi):
         (x1, None, cfg, p, q), {}, dev, smi, fused_vs_cpu, b1_b2,
         ("detect_cands", "slice_windows"))
     del x0, x1
+    torch.cuda.empty_cache()
+    out.update(phase_graphs_dist(cfg, dev, tmp, smi))
     torch.cuda.empty_cache()
     print(f"graphs: phase 20 took {time.perf_counter() - t0:.1f} s",
           flush=True)

@@ -43,6 +43,7 @@ from airmodes_torch.io import native_stream as tnative
 from airmodes_torch.kernels import preamble as TK
 from airmodes_torch.resample import fused as tfused
 from airmodes_torch.utils import graphs
+from torch_fake_graph import FakeGraph, _leaves, install_fake_graph
 
 TILE = 4096
 INT_COLS = [0, 1, 2, 3, 5, 6, 7, 8]    # every packed column but noise (4)
@@ -292,56 +293,9 @@ def test_fused_jit_matches_reference(gain):
 
 # --- the mechanism, with a stand-in graph ------------------------------------
 
-class FakeGraph:
-    """Stand-in for `graphs.CudaGraph` on the CPU: capture runs the
-    function (as the capture records it), replay runs it again and writes
-    its outputs into the captured ones (as the graph rewrites its pool).
-    A real replay runs no Python: while the stand-in's does, `replaying`
-    is set (a test's counter stays put) and nested graphed calls run
-    inline, as in a capture."""
-
-    made = []
-    replaying = False
-
-    def __init__(self, dev):
-        self.dev = dev
-        self.run = None
-        self.out = None
-        self.replays = 0
-        FakeGraph.made.append(self)
-
-    def warm(self, run):
-        run()
-
-    def capture(self, run):
-        self.run = run
-        self.out = run()
-        return self.out
-
-    def replay(self):
-        self.replays += 1
-        FakeGraph.replaying = True
-        try:
-            with graphs._inline():
-                out = self.run()
-        finally:
-            FakeGraph.replaying = False
-        for dst, src in zip(_leaves(self.out), _leaves(out)):
-            dst.copy_(src)
-
-
-def _leaves(tree):
-    out = []
-    graphs._tree_map(out.append, tree)
-    return out
-
-
 @pytest.fixture
 def fake(monkeypatch):
-    FakeGraph.made = []
-    monkeypatch.setattr(graphs, "CudaGraph", FakeGraph)
-    monkeypatch.setattr(graphs, "_on_card", lambda dev: True)
-    return FakeGraph
+    return install_fake_graph(monkeypatch.setattr)
 
 
 def _affine():

@@ -2,11 +2,13 @@
 smoke script, loads neither JAX nor any module of the `airmodes` package."""
 
 import ast
+import importlib
 import os
 import subprocess
 import sys
 
 import airmodes_torch
+from airmodes_torch.utils import graphs
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "airmodes_torch")
@@ -161,6 +163,155 @@ def test_every_reference_function_is_ported():
                     missing.append(f"{mod}.{name}")
     assert missing == []
     assert jits == 9
+
+
+def _jit_sites():
+    """Every `jax.jit` site of `airmodes/`, by file (below `airmodes/`) and
+    function: a function decorated with `jax.jit` or
+    `functools.partial(jax.jit, ...)` names itself, a `jax.jit(...)` call
+    the function it stands in (qualified names: `Class.method`,
+    `outer.inner`). One entry per site."""
+    def is_jit(node):
+        return (isinstance(node, ast.Attribute) and node.attr == "jit"
+                and isinstance(node.value, ast.Name)
+                and node.value.id == "jax")
+
+    def jit_decorator(node):
+        return is_jit(node) or (
+            isinstance(node, ast.Call) and node.args and is_jit(node.args[0])
+            and getattr(node.func, "attr", None) == "partial")
+
+    sites = []
+
+    def walk(node, path, scope):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                  ast.ClassDef)):
+                inner = scope + [child.name]
+                if not isinstance(child, ast.ClassDef):
+                    sites.extend((path, ".".join(inner))
+                                 for d in child.decorator_list
+                                 if jit_decorator(d))
+                walk(child, path, inner)
+            else:
+                if isinstance(child, ast.Call) and is_jit(child.func):
+                    sites.append((path, ".".join(scope)))
+                walk(child, path, scope)
+
+    top = os.path.join(ROOT, "airmodes")
+    for dirpath, _, files in os.walk(top):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                path = os.path.join(dirpath, f)
+                with open(path) as fh:
+                    tree = ast.parse(fh.read(), path)
+                walk(tree, os.path.relpath(path, top).replace(os.sep, "/"),
+                     [])
+    return sites
+
+
+_S = "airmodes_torch.dist.sharded."
+_PP = "airmodes_torch.resample.polyphase"
+_K = "airmodes_torch.kernels.preamble"
+# each reference `jax.jit` site (file below airmodes/, function) -> its
+# counterparts, one per site: (port module, port function, the graphed
+# function it is or calls, as "module.name")
+_JIT_SITES = {
+    ("dist/multihost.py", "PodPipeline.__post_init__"): [
+        ("airmodes_torch.dist.multihost", "PodPipeline.__post_init__",
+         _S + name) for name in ("_planar_local", "_planar_local",
+                                 "_f32_local", "_f32_local")],
+    ("dist/sharded.py", "make_sharded_demod"): [
+        ("airmodes_torch.dist.sharded", "make_sharded_demod",
+         _S + "_f32_local")],
+    ("dist/sharded.py", "make_sharded_demod_ctx"): [
+        ("airmodes_torch.dist.sharded", "make_sharded_demod_ctx",
+         _S + "_f32_local")],
+    ("dist/sharded.py", "make_sharded_demod_planar"): [
+        ("airmodes_torch.dist.sharded", "make_sharded_demod_planar",
+         _S + "_planar_local")],
+    ("dist/sharded.py", "make_sharded_demod_planar_ctx"): [
+        ("airmodes_torch.dist.sharded", "make_sharded_demod_planar_ctx",
+         _S + "_planar_local")],
+    ("dist/sharded.py", "make_sharded_resample_demod"): [
+        ("airmodes_torch.dist.sharded", "make_sharded_resample_demod",
+         _S + "_resample_local")] * 2,
+    ("kernels/preamble_pallas.py", "demod_block_packed_pallas_jit"): [
+        (_K, "demod_block_packed_1d_jit", _K + ".demod_block_packed_1d_jit")],
+    ("kernels/preamble_pallas.py", "demod_batch_packed_pallas_jit"): [
+        (_K, "demod_batch_packed_1d_jit", _K + ".demod_batch_packed_1d_jit")],
+    ("kernels/preamble_pallas.py", "demod_block_packed_fast_jit"): [
+        (_K, "demod_block_packed_fast_jit",
+         _K + ".demod_block_packed_fast_jit")],
+    ("kernels/preamble_pallas.py", "demod_batch_packed_fast_jit"): [
+        (_K, "demod_batch_packed_fast_jit",
+         _K + ".demod_batch_packed_fast_jit")],
+    ("kernels/preamble_pallas.py", "demod_batch_packed_planar_jit"): [
+        (_K, "demod_batch_packed_planar_jit",
+         _K + ".demod_batch_packed_planar_jit")],
+    ("resample/fused.py", "resample_demod_packed_planar_jit"): [
+        ("airmodes_torch.resample.fused", "resample_demod_packed_planar_jit",
+         "airmodes_torch.resample.fused.resample_demod_packed_planar_jit")],
+    ("resample/polyphase.py", "_streaming_kernel"): [
+        (_PP, "streaming_resampler._kernel", _PP + "._streaming_kernel")],
+    ("resample/polyphase.py", "resample_planar"): [
+        (_PP, "resample_planar", _PP + "._resample_planar_step")],
+    ("resample/polyphase.py", "resample"): [
+        (_PP, "resample", _PP + "._resample_step")],
+    ("io/native_stream.py", "_planar_step.step"): [
+        ("airmodes_torch.io.native_stream", "_planar_step",
+         "airmodes_torch.io.native_stream._full_block_rows")],
+    ("io/stream.py", "_xla_batch_step_impl.step"): [
+        ("airmodes_torch.io.stream", "_batch_step",
+         "airmodes_torch.dsp.pipeline.demod_batch_packed_jit")],
+    ("dsp/pipeline.py", "demod_block_jit"): [
+        ("airmodes_torch.dsp.pipeline", "demod_block_jit",
+         "airmodes_torch.dsp.pipeline.demod_block_jit")],
+    ("dsp/pipeline.py", "demod_block_packed_jit"): [
+        ("airmodes_torch.dsp.pipeline", "demod_block_packed_jit",
+         "airmodes_torch.dsp.pipeline.demod_block_packed_jit")],
+    ("dsp/pipeline.py", "demod_batch_jit"): [
+        ("airmodes_torch.dsp.pipeline", "demod_batch_jit",
+         "airmodes_torch.dsp.pipeline.demod_batch_jit")],
+}
+
+
+def _function_node(module, qualname):
+    """The ast node of `qualname` (`Class.method`, `outer.inner`) in the
+    port module's source."""
+    path = importlib.import_module(module).__file__
+    with open(path) as f:
+        node = ast.parse(f.read(), path)
+    for part in qualname.split("."):
+        node = next(n for n in ast.walk(node)
+                    if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                    and n.name == part)
+    return node
+
+
+def test_every_reference_jit_site_is_graphed():
+    """Each of the reference's 24 `jax.jit` sites maps, by the explicit
+    `_JIT_SITES` (a stale or missing entry fails), to a counterpart that
+    is a `graphs.Graphed` (a captured CUDA graph per key on a card) or
+    calls one: each factory's step (the sharded steps, `PodPipeline`'s),
+    each wrapper (`resample`, `resample_planar`) and each caller of a
+    compiled step (the streaming resampler's stride, the runners' steps)
+    names its module-level graphed function."""
+    sites = _jit_sites()
+    assert len(sites) == 24
+    assert sorted(sites) == sorted(k for k, v in _JIT_SITES.items()
+                                   for _ in v)
+    for site, counterparts in _JIT_SITES.items():
+        for module, qualname, target in counterparts:
+            tmod, _, name = target.rpartition(".")
+            assert isinstance(getattr(importlib.import_module(tmod), name),
+                              graphs.Graphed), (site, target)
+            if (module, qualname) == (tmod, name):
+                continue
+            used = {getattr(n, "id", None) or n.attr
+                    for n in ast.walk(_function_node(module, qualname))
+                    if isinstance(n, (ast.Name, ast.Attribute))}
+            assert name in used, (site, qualname, name)
 
 
 def test_every_renamed_or_tpu_only_name_exists_in_the_reference():

@@ -30,6 +30,7 @@ import torch
 from airmodes_torch.config import DspConfig
 from airmodes_torch.dist import multihost
 from airmodes_torch.dist.multihost import PodPipeline
+from airmodes_torch.dsp import host as host_mod
 from airmodes_torch.testing import encoder
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -357,6 +358,7 @@ def _capture(n_channel, n_time, seed):
 def _worker(argv) -> int:
     coord, world, rank = argv[0], int(argv[1]), int(argv[2])
     n_channel, n_time, seed = (int(a) for a in argv[3:6])
+    stand_in = argv[6:] == ["stand-in"]
     torch.set_num_threads(1)
     import torch.distributed as dist
     multihost.initialize(coord, world, rank, device="cpu")
@@ -370,10 +372,44 @@ def _worker(argv) -> int:
             out["planar" if planar else "f32"] = [
                 m for o in pipe.run_stream([x]) for m in o]
         out["times"] = [pipe.mesh.times.start, pipe.mesh.times.stop]
+        if stand_in:
+            out.update(_stand_in_runs(cfg, x, n_channel, n_time))
         print(json.dumps(out), flush=True)
     finally:
         dist.destroy_process_group()
     return 0
+
+
+def _stand_in_runs(cfg, x, n_channel, n_time) -> dict:
+    """The worker's runs under the stand-in graph (tests/torch_fake_graph):
+    both pipelines again, every transfer guarded against running inside a
+    graph; then the planar step given the full host arrays of the first
+    step, whose graph must take this rank's shards only. Returns the
+    messages, the shapes of the graphs' stream buffers and the replays."""
+    from airmodes_torch.dist import sharded
+    from torch_fake_graph import guard_transfers, install_fake_graph
+    install_fake_graph()
+    ran = guard_transfers(sharded)
+    out = {}
+    for planar in (False, True):
+        pipe = PodPipeline(cfg, n_channel=n_channel, n_time=n_time,
+                           planar=planar, device="cpu")
+        local = sharded._planar_local if planar else sharded._f32_local
+        r0 = local.replays
+        out["stand-in " + ("planar" if planar else "f32")] = [
+            m for o in pipe.run_stream([x]) for m in o]
+        out["replays " + ("planar" if planar else "f32")] = \
+            local.replays - r0
+    S = n_time * cfg.block_size
+    xi, xq = (np.ascontiguousarray(host_mod.quantize_i8_np(f, 120.0))
+              for f in (x[:, :S].real, x[:, :S].imag))
+    sharded._planar_local.cache_clear()
+    table = sharded.make_sharded_demod_planar(pipe.mesh, cfg)(xi, xq)
+    out["table shape"] = list(table.index.shape[:2])
+    out["buffer shapes"] = [list(e.inputs["xi"].shape) for e in
+                            sharded._planar_local._cache.values()]
+    out["transfers"] = len(ran)
+    return out
 
 
 def _free_port() -> int:
@@ -384,13 +420,13 @@ def _free_port() -> int:
     return port
 
 
-def _run_ranks(world, n_channel, n_time, seed):
+def _run_ranks(world, n_channel, n_time, seed, *extra):
     coord = f"127.0.0.1:{_free_port()}"
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), coord, str(world),
-         str(r), str(n_channel), str(n_time), str(seed)],
+         str(r), str(n_channel), str(n_time), str(seed), *extra],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env, text=True)
         for r in range(world)]
     outs = []
@@ -443,6 +479,32 @@ def test_ranks_union_matches_one_process(world, shape):
         assert len(union) == len(set(union)), mode
         assert sorted(union) == sorted(one[mode]), mode
         assert want_hex <= {m.split()[1] for m in union}, mode
+
+
+
+@pytest.mark.parametrize("world,shape", [(2, (1, 8)), (4, (2, 4))],
+                         ids=["2 ranks, (1, 8)", "4 ranks, (2, 4)"])
+def test_ranks_with_stand_in_graph_match_eager(world, shape):
+    """The gloo runs of test_ranks_union_matches_one_process again, each
+    rank's pipelines also under the stand-in graph: every rank's messages
+    equal its eager pipeline's, message for message, one replay of the
+    local step per step, no transfer inside a graph (the guard raises in
+    the worker) and transfers outside wherever a row spans ranks; the
+    planar step given the full host arrays keeps this rank's shards in
+    its graph and returns this rank's table."""
+    n_channel, n_time = shape
+    outs = _run_ranks(world, n_channel, n_time, 78, "stand-in")
+    per = n_channel * n_time // world
+    local = (max(per // n_time, 1), min(per, n_time))
+    cfg, _, _ = _capture(n_channel, n_time, 78)
+    for o in outs:
+        for mode in ("f32", "planar"):
+            assert o["stand-in " + mode] == o[mode], (o["rank"], mode)
+            assert o["replays " + mode] == 2, (o["rank"], mode)
+        assert o["table shape"] == list(local)
+        assert o["buffer shapes"] == [[local[0], local[1] * cfg.block_size]]
+        assert (o["transfers"] > 0) == (per < n_time)
+    assert any(o["planar"] for o in outs)
 
 
 if __name__ == "__main__":

@@ -37,6 +37,7 @@ from airmodes_torch.dsp import host
 from airmodes_torch.dsp.pipeline import unpack_table
 from airmodes_torch.io import sources
 from airmodes_torch.resample import fused, polyphase
+from airmodes_torch.utils import graphs
 
 RTOL = ATOL = 3e-6
 JCFG = airmodes.DspConfig(channel_rate=4e6, block_size=1 << 16,
@@ -278,6 +279,92 @@ def test_streaming_matches_reference_streaming():
     assert (a.stride, a.delay_out, a.n_out) == (b.stride, b.delay_out,
                                                 b.n_out)
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("pq,s_groups", [((1, 5), 16), ((2, 3), 5)])
+def test_streaming_kernel_matches_reference(pq, s_groups):
+    """The compiled stride `_streaming_kernel` against the reference's
+    jitted `_streaming_kernel` on the same (hist + stride, 2) blocks."""
+    p, q = pq
+    for seed in (11, 12):
+        x = _noise((s_groups + 2) * 128 * q, seed)
+        block2 = np.stack([x.real, x.imag], -1)
+        want = np.asarray(jpoly._streaming_kernel(block2, p, q, 12,
+                                                  s_groups))
+        got = polyphase._streaming_kernel(torch.from_numpy(block2), p, q, 12,
+                                          s_groups, device="cpu")
+        assert got.shape == want.shape == (2, s_groups * 128 * p)
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    with pytest.raises(ValueError, match="_streaming_kernel"):
+        polyphase._streaming_kernel(torch.zeros(100, 2), p, q, 12, s_groups,
+                                    device="cpu")
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    from torch_fake_graph import install_fake_graph
+    return install_fake_graph(monkeypatch.setattr)
+
+
+def _streamed(p, q, x):
+    rs = polyphase.streaming_resampler(p, q, stride_blocks=1024,
+                                       device="cpu")
+    return np.concatenate([rs.push(x[:30000]), rs.push(x[30000:]),
+                           rs.flush()])
+
+
+def test_streaming_resampler_replays_one_graph(stand_in):
+    """Under the stand-in graph: two streaming resamplers with equal
+    (p, q, taps, S) replay one captured stride, and their output is the
+    eager resampler's, sample for sample."""
+    x = _noise(50000, 9)
+    k = polyphase._streaming_kernel
+    k.cache_clear()
+    with graphs.disable():
+        want = _streamed(2, 3, x)
+    assert len(k) == 0 and not stand_in.made
+    r0 = k.replays
+    assert np.array_equal(_streamed(2, 3, x), want)
+    replays = k.replays - r0
+    assert np.array_equal(_streamed(2, 3, x), want)
+    assert len(k) == 1 and len(stand_in.made) == 1
+    assert k.replays - r0 == 2 * replays > 0
+
+
+@pytest.mark.parametrize("layout", ["complex", "iq", "real", "planar"])
+def test_resample_layouts_through_the_graph(layout, stand_in):
+    """`resample` (complex, (N, 2) I/Q, real input) and `resample_planar`
+    under the stand-in graph: the eager call's layout, dtype and values,
+    within the tolerance of the reference's jitted call; a second input of
+    the same shape replays the graph; p == q == 1 captures nothing."""
+    p, q = 2, 3
+    xs = [_noise(12 * 1024 + 77, seed) for seed in (13, 14)]
+    if layout == "iq":
+        xs = [np.stack([x.real, x.imag], -1) for x in xs]
+    elif layout == "real":
+        xs = [x.real.copy() for x in xs]
+    elif layout == "planar":
+        xs = [np.stack([x.real, x.imag]) for x in xs]
+    ref = jpoly.resample_planar if layout == "planar" else jpoly.resample
+    port = (polyphase.resample_planar if layout == "planar"
+            else polyphase.resample)
+    g = (polyphase._resample_planar_step if layout == "planar"
+         else polyphase._resample_step)
+    g.cache_clear()
+    r0 = g.replays
+    for x in xs:
+        with graphs.disable():
+            eager = port(x, p, q, device="cpu")
+        got = port(x, p, q, device="cpu")
+        assert got.dtype == eager.dtype and got.shape == eager.shape
+        assert torch.equal(got, eager)
+        want = np.asarray(ref(x, p, q))
+        assert got.numpy().dtype == want.dtype
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    assert len(g) == 1 and g.replays - r0 == 2
+    assert torch.equal(port(xs[0], 1, 1, device="cpu"),
+                       polyphase._as_tensor(xs[0], torch.device("cpu")))
+    assert len(g) == 1 and g.replays - r0 == 2
 
 
 def test_streaming_resampler_rejects_huge_ratio():
