@@ -110,6 +110,9 @@ process per source, all at once), then:
      probe's readings (the planar stage split among them; P1-P3 beside
      `x + 1.0`, `torch.sum` and the windows' sums in one call, each in
      GB/s of its own bytes), failing any rate above 105% of 3.35 TB/s;
+     P2's and P3's output in one PyTorch call (`torch.matmul` of
+     ones(8, 144) with each window, their `library_ms`), held against
+     P2's at every size;
  17. checks that the port's profiler trace shows every hand-kernel launch
      (fault C2): `modes_rx --int8 --profile` over phase 6's capture (its
      runner replays the compiled step), each kernel's device events equal
@@ -158,7 +161,18 @@ process per source, all at once), then:
      input; the (1, 1) f32 sharded step on one block, 20 replays equal.
      Phases 6, 7, 11-15 and 19 run the runners, the pipeline and the
      bench, whose steps are these graphs;
- 21. prints one JSON line of per-kernel numbers, the card line, and last
+ 21. runs the graft entry points (`airmodes_torch.graft_entry`, the
+     counterpart of `__graft_entry__.py`): entry()'s compiled step twice
+     (equal bit for bit, and equal to the CPU's) and its time, graphed, as
+     the host sees it and on the card alone; `dryrun_multichip(1)` and
+     `_dryrun_steps(8)` (the (1, 8) mesh on this one card), every sharded
+     step and PodPipeline stream against the port's CPU run, B1 and B2
+     launched by every planar step, every B1 and B2 call held against its
+     plain version on its own inputs; the planar steps again on DF17
+     frames at each mesh (tables == the CPU's, every frame decoded);
+     `python -m airmodes_torch.graft_entry` (exit 0, the card's name in
+     its output);
+ 22. prints one JSON line of per-kernel numbers, the card line, and last
      {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero. Without a CUDA card, or without the
@@ -2153,6 +2167,16 @@ def phase_probes(dev, smi, flush):
           f"ring_read_kernel {BW.ring_geometry(BW.ROWS, sms)[2]} of "
           f"{BW.SMEM_PER_CTA} bytes", flush=True)
     bw_err = {k: 0.0 for k in BW.LAUNCHES}
+    # P2's and P3's function in one PyTorch call (their library yardstick):
+    # ones(8, 144) @ each window, f32 with TF32 off, each window's column
+    # sums on its 8 rows, summed in cuBLAS's order
+    ones = torch.ones((BW.OUT_ROWS, BW.WROWS), device=dev)
+
+    def rows_matmul(x):
+        steps = BW.windows(x.shape[0])
+        return torch.matmul(ones, x[:steps * BW.WROWS].view(
+            steps, BW.WROWS, BW.LANES)).view(steps * BW.OUT_ROWS, BW.LANES)
+
     for n_rows in (BW.ROWS - 3, 1000, 100, BW.ROWS):
         x = BW.make_input(n_rows, dev)
         BW.reset_launches()
@@ -2160,6 +2184,11 @@ def phase_probes(dev, smi, flush):
                "dma2_read": BW.dma2_read(x)}
         torch.cuda.synchronize()
         bw_launches = dict(BW.LAUNCHES)
+        lib = rows_matmul(x)
+        if lib.shape != got["dma_read"].shape or not torch.allclose(
+                lib, got["dma_read"], rtol=1e-5, atol=1e-4):
+            raise AssertionError(f"the 8-row matmul != P2 at {n_rows} rows")
+        del lib
         want_read = BW.read_plain(x)
         for name, want in (("copy", BW.copy_plain(x)),
                            ("dma_read", want_read), ("dma2_read", want_read)):
@@ -2182,6 +2211,12 @@ def phase_probes(dev, smi, flush):
               f"[{smi}]", flush=True)
     copy_plain_ms = time_ms(lambda: BW.copy_plain(x), iters=5, flush=flush)
     read_plain_ms = time_ms(lambda: BW.read_plain(x), iters=5, flush=flush)
+    read_lib_ms = time_ms(lambda: rows_matmul(x), flush=flush)
+    nb, _ = read_probe_cost(BW.ROWS)
+    print(f"bw: torch 8-row matmul (R), P2's and P3's function in one call "
+          f"(== P2 within rtol 1e-5, atol 1e-4) {read_lib_ms:.5f} ms "
+          f"{nb / read_lib_ms / 1e6:.1f} GB/s over P2's {nb} bytes [{smi}]",
+          flush=True)
     nb, ni = copy_probe_cost(BW.ROWS)
     bms, by = bound(nb, ni)
     p1 = lines["P1 copy kernel (R+W)"]
@@ -2205,7 +2240,7 @@ def phase_probes(dev, smi, flush):
                      "launches": bw_launches[key], "max_abs_err": bw_err[key],
                      "ms": lines[line]["ms"], "plain_ms": read_plain_ms,
                      "bound_ms": bms, "bound_by": by,
-                     "library_ms": lines["torch window sums (R)"]["ms"],
+                     "library_ms": read_lib_ms,
                      "gbps": lines[line]["gbps"]})
     del x
     torch.cuda.empty_cache()
@@ -3410,6 +3445,407 @@ def phase_graphs(cfg, dev, tmp, smi):
     return out
 
 
+GRAFT_MESHES = (1, 8)        # phase 21: dryrun_multichip(1), _dryrun_steps(8)
+GRAFT_FRAME_SPACING = 999    # phase 21's frames: samples apart at 2 Msps
+
+
+class _HeldB1B2:
+    """While entered, every call of the B1 and B2 wrappers
+    (`preamble_detect_cands_planar`, `_slice_windows`) on card tensors is
+    recorded: its arguments and its output, cloned where the call runs.
+    In a graph's warm-up run the clones hold the eager values; in its
+    capture they are nodes of the graph, and after the step they hold
+    the last replay's. Each record also carries the dry-run step it ran
+    in (`graft_entry.DryrunStep` is wrapped to mark the steps' ends).
+    `check()` holds each record bit for bit against the wrapper on CPU
+    copies of its arguments, i.e. the kernel's plain version. Recording
+    launches no counted kernel."""
+
+    def __init__(self):
+        from airmodes_torch import graft_entry as G
+        from airmodes_torch.kernels import preamble as K
+        self.K, self.G = K, G
+        self.orig = {"B1": K.preamble_detect_cands_planar,
+                     "B2": K._slice_windows}
+        self.calls, self.ends = [], []
+
+    def _wrap(self, kernel):
+        import torch
+        fn = self.orig[kernel]
+
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            if out.device.type == "cuda":
+                self.calls.append((kernel, tuple(
+                    a.clone() if isinstance(a, torch.Tensor) else a
+                    for a in args), kw, out.clone()))
+            return out
+        return call
+
+    def __enter__(self):
+        real = self.step_type = self.G.DryrunStep
+
+        def step(name, *rest):
+            self.ends.append((name, len(self.calls)))
+            return real(name, *rest)
+        self.K.preamble_detect_cands_planar = self._wrap("B1")
+        self.K._slice_windows = self._wrap("B2")
+        self.G.DryrunStep = step
+        return self
+
+    def __exit__(self, *exc):
+        self.K.preamble_detect_cands_planar = self.orig["B1"]
+        self.K._slice_windows = self.orig["B2"]
+        self.G.DryrunStep = self.step_type
+        return False
+
+    def check(self, what, steps=None):
+        """Every record == the plain version on its inputs. Returns
+        {step: {"B1": [calls, candidates], "B2": [calls, non-empty
+        windows]}}, by the dry run's step names (`steps`: one name for
+        calls made outside a dry run)."""
+        import torch
+        torch.cuda.synchronize()
+        ends = self.ends or [(steps, len(self.calls))]
+        held, lo = {}, 0
+        for name, hi in ends:
+            held[name] = {"B1": [0, 0], "B2": [0, 0]}
+            for kernel, args, kw, out in self.calls[lo:hi]:
+                host = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                             for a in args)
+                want, got = self.orig[kernel](*host, **kw), out.cpu()
+                if got.shape != want.shape or not torch.equal(got, want):
+                    raise AssertionError(f"{what} {name}: {kernel} on the "
+                                         f"card != its plain version on "
+                                         f"the same inputs")
+                n = (int(got[..., self.K._COUNT_ROW, :].sum())
+                     if kernel == "B1" else int((host[2] >= 0).sum()))
+                held[name][kernel][0] += 1
+                held[name][kernel][1] += n
+            lo = hi
+        if lo != len(self.calls):
+            raise AssertionError(f"{what}: calls after the last step")
+        return held
+
+
+def _graft_frames(n, dev):
+    """The dry run's four planar steps (the planar step, with stream
+    context, the fused resample step planar, PodPipeline(planar=True)'s
+    two steps) at its mesh and config, on blocks holding DF17 frames (its
+    own inputs are noise: every table empty), with B1 and B2 held against
+    their plain versions on every call: the card's tables == the CPU's
+    (int32 exact, noise rtol 1e-5; the resample step's messages field by
+    field), every frame decoded, B1's candidate blocks not empty. Returns
+    the number of frames."""
+    import numpy as np
+    import torch
+    from airmodes_torch import graft_entry as G
+    from airmodes_torch.config import DspConfig
+    from airmodes_torch.dist import multihost, sharded
+    from airmodes_torch.dsp.host import quantize_i8_np
+    from airmodes_torch.dsp.pipeline import DetectionTable, pack_table
+    from airmodes_torch.testing import encoder
+    n_channel, n_time = G._mesh_shape(n)
+    what = f"graft entry: frames on the {(n_channel, n_time)} mesh"
+    pcfg = DspConfig(block_size=4096, max_detections=16)
+    q = 3
+
+    def capture(total, up, seed, phase=0):
+        """DF17 frames every GRAFT_FRAME_SPACING samples at the channel
+        rate times `up`, from 603 (+ phase raw samples), peak 0.9:
+        (complex64, the frames' hexes)."""
+        spacing, start = GRAFT_FRAME_SPACING * up, 603 * up + phase
+        iq, truth = encoder.make_capture(
+            encoder.random_df17_frames((total - start) // spacing,
+                                       seed=seed),
+            rate=pcfg.channel_rate * up, snr_db=20.0, spacing=spacing,
+            start=start, seed=seed, total_samples=total)
+        iq = (iq / np.max(np.abs(iq)) * 0.9).astype(np.complex64)
+        return iq, {t.hex for t in truth}
+
+    def tile(x):
+        return np.ascontiguousarray(np.broadcast_to(x, (n_channel,) + x.shape))
+
+    total = n_time * pcfg.block_size
+    iq, want = capture(total, 1, 21)
+    gain = 120.0
+    xi, xq = (tile(quantize_i8_np(v, gain)) for v in (iq.real, iq.imag))
+    zl = np.zeros((n_channel, pcfg.left_halo), np.int8)
+    zr = np.zeros((n_channel, pcfg.right_halo), np.int8)
+    # at 6 Msps the sub-chip phase (the frame's start mod 3) decides
+    # whether a frame decodes after the resample to 2 samples per chip:
+    # phase 2 decodes all 32 frames of the (1, 8) capture at 20 dB, 0
+    # and 1 miss 7 and 5 of them, on the card and on the CPU alike
+    raw, want_raw = capture(total * q, q, 22, phase=2)
+    iqrp = tile(np.stack([raw.real, raw.imag]).astype(np.float32))
+    Sp = multihost.PodPipeline(pcfg, n_channel=n_channel, n_time=n_time,
+                               planar=True, device="cpu").samples_per_step
+    ips, want_pod = capture(2 * Sp, 1, 23)
+
+    def steps(device):
+        mesh = sharded.make_mesh(n_channel, n_time, None, device)
+        fnp = sharded.make_sharded_demod_planar(mesh, pcfg)
+        fnc = sharded.make_sharded_demod_planar_ctx(mesh, pcfg)
+        fnr = sharded.make_sharded_resample_demod(mesh, pcfg, 1, q,
+                                                  planar=True)
+        pipe = multihost.PodPipeline(pcfg, n_channel=n_channel,
+                                     n_time=n_time, planar=True,
+                                     device=device)
+        planar = sharded.shard_input_planar(xi, xq, mesh)
+        return {
+            "make_sharded_demod_planar": lambda: fnp(*planar),
+            "make_sharded_demod_planar_ctx": lambda: fnc(
+                *planar, zl, zl, zr, zr),
+            "make_sharded_resample_demod(planar=True)": lambda: fnr(
+                sharded.shard_input_resample_planar(iqrp, mesh),
+                np.float32(100.0)),
+            "PodPipeline(planar=True).run_stream": lambda: list(
+                pipe.run_stream(iter([tile(ips[:Sp]), tile(ips[Sp:])])))}
+
+    sharded._planar_local.cache_clear()
+    sharded._resample_local.cache_clear()
+    on_cpu = {k: f() for k, f in steps("cpu").items()}
+    for name, fn in steps(dev).items():
+        with _HeldB1B2() as rec:
+            card = fn()
+        cpu = on_cpu[name]
+        held = rec.check(what, name)[name]
+        if isinstance(card, DetectionTable):
+            table = DetectionTable(*(f.cpu() for f in card))
+            if "resample" in name:
+                msgs = _table_messages(table, pcfg, 100.0 / 127.0)
+                _same_messages(msgs, _table_messages(cpu, pcfg,
+                                                     100.0 / 127.0), name)
+                truth = want_raw
+            else:
+                _check_batch(pack_table(table).numpy(),
+                             pack_table(cpu).numpy(), f"{what} {name}", 1e-5)
+                msgs = _table_messages(table, pcfg, 1.0)
+                truth = want
+        else:
+            if card != cpu:
+                raise AssertionError(f"{what} {name}: messages != the "
+                                     f"CPU's")
+            msgs, truth = [m for out in card for m in out], want_pod
+        got = {m.split()[1] for m in msgs}
+        if not truth <= got or not held["B1"][1] or not held["B2"][1]:
+            raise AssertionError(f"{what} {name}: decoded {len(got & truth)}"
+                                 f" of {len(truth)} frames; B1/B2 held "
+                                 f"{held}")
+        print(f"{what}: {name}: {len(msgs)} messages, every one of "
+              f"{len(truth)} frames decoded, == the CPU's; B1 held on "
+              f"{held['B1'][0]} calls ({held['B1'][1]} candidates), B2 on "
+              f"{held['B2'][0]} ({held['B2'][1]} windows), each == its "
+              f"plain version bit for bit", flush=True)
+    return len(want) + len(want_raw) + len(want_pod)
+
+
+def _graft_steps_vs_cpu(card, cpu, what):
+    """The dry run's steps on the card against the CPU's, under the parity
+    contract: the same steps on the same inputs; each table's int32
+    columns exact and noise within rtol 1e-5 (planar) or 1e-4 (full
+    block), except the fused resample steps' (phase 13's contract:
+    messages field by field); run_stream's messages string for string.
+    Returns the planar steps' names."""
+    import numpy as np
+    from airmodes_torch.dsp.pipeline import DetectionTable, pack_table
+    import torch
+    if [s.name for s in card] != [s.name for s in cpu]:
+        raise AssertionError(f"{what}: steps {[s.name for s in card]} != "
+                             f"the CPU's {[s.name for s in cpu]}")
+    def tensors(table):
+        return DetectionTable(*(torch.from_numpy(f) for f in table))
+
+    planar = []
+    for a, b in zip(card, cpu):
+        name = f"{what} {a.name}"
+        for x, y in zip(a.inputs, b.inputs):
+            if not np.array_equal(x, y):
+                raise AssertionError(f"{name}: inputs differ from the CPU's")
+        if "planar" in a.name:
+            planar.append(a.name)
+        if not isinstance(a.outputs, DetectionTable):
+            if a.outputs != b.outputs or len(a.outputs) != 2:
+                raise AssertionError(f"{name}: messages != the CPU's")
+            note = (f"{sum(map(len, a.outputs))} messages over 2 steps == "
+                    f"the CPU's")
+        elif "resample" in a.name:
+            scale = 100.0 / 127.0 if "planar" in a.name else 1.0
+            worst = _same_messages(
+                _table_messages(tensors(a.outputs), a.cfg, scale),
+                _table_messages(tensors(b.outputs), b.cfg, scale), name)
+            n = int((a.outputs.index != b.outputs.index).sum())
+            note = (f"table {a.outputs.index.shape}, "
+                    f"{int((a.outputs.index >= 0).sum())} detections, "
+                    f"messages == CPU field "
+                    f"by field (ref_dbfs within {worst:.2f} dB; {n} "
+                    f"detection indices differ)")
+        else:
+            pa, pb = (pack_table(tensors(t)).numpy()
+                      for t in (a.outputs, b.outputs))
+            rtol = 1e-5 if "planar" in a.name else 1e-4
+            _check_batch(pa, pb, name, rtol)
+            n = int((a.outputs.noise != b.outputs.noise).sum())
+            note = (f"table {a.outputs.index.shape}, "
+                    f"{int((a.outputs.index >= 0).sum())} detections, == "
+                    f"CPU (int32 exact, "
+                    f"noise within rtol {rtol:g}, {n} values not bit for "
+                    f"bit)")
+        print(f"graft entry: {name}: {note}; launches "
+              f"B1 {a.launches['B1']}, B2 {a.launches['slice_windows']}",
+              flush=True)
+    return planar
+
+
+def phase_graft_entry(dev, smi):
+    """Phase 21: the graft entry points (`airmodes_torch.graft_entry`,
+    the counterpart of `__graft_entry__.py`) on the card: entry()'s
+    compiled step twice (equal bit for bit, and equal to the CPU's under
+    the parity contract), then on a block of DF17 frames (== the CPU's,
+    every frame decoded: the example block is noise and detects nothing),
+    its time graphed and eager, as the host sees it and on the card
+    alone, its graph's nodes and its profile; dryrun_multichip(1) and
+    _dryrun_steps(8), the (1, 8) mesh on this one card, every step
+    against the port's CPU run, B1 and B2 launched by every planar step
+    and the counts read around each run, every call of B1's and B2's
+    wrappers held against its plain version on the call's own inputs
+    (`_HeldB1B2`); the planar steps again at each mesh on DF17 frames
+    (`_graft_frames`: the dry run's inputs are noise); then `python -m
+    airmodes_torch.graft_entry` (exit 0, the card's name in its output).
+    Returns the B1 and B2 launches of the (1, 8) run."""
+    import subprocess
+    import numpy as np
+    import torch
+    from airmodes_torch import graft_entry as G
+    from airmodes_torch.dist import sharded as S
+    from airmodes_torch.dsp.host import table_to_messages
+    from airmodes_torch.dsp import pipeline as P
+    from airmodes_torch.dsp.pipeline import DetectionTable, pack_table
+    from airmodes_torch.kernels import preamble as K
+    from airmodes_torch.testing import encoder
+    from airmodes_torch.utils import graphs
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    fn, args = G.entry(dev)
+    one, two = (G._host_table(fn(*args)) for _ in range(2))
+    cfn, cargs = G.entry("cpu")
+    if not np.array_equal(args[0], cargs[0]):
+        raise AssertionError("graft entry: entry()'s block differs by device")
+    cpu = G._host_table(cfn(*cargs))
+    for f, a, b in zip(one._fields, one, two):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"graft entry: entry()'s two runs differ "
+                                 f"in {f}")
+    for f, a, b in zip(one._fields, one, cpu):
+        if f == "noise":
+            np.testing.assert_allclose(a, b, rtol=1e-4,
+                                       err_msg="graft entry: entry noise")
+        elif not np.array_equal(a, b):
+            raise AssertionError(f"graft entry: entry()'s {f} != the CPU's")
+    print(f"graft entry: entry()'s step twice, equal bit for bit, == the "
+          f"CPU's (int32 exact, noise rtol 1e-4; "
+          f"{int((one.noise != cpu.noise).sum())} noise values not bit for "
+          f"bit); {int((one.index >= 0).sum())} detections", flush=True)
+    # the example block is noise and detects nothing: the same step on a
+    # block of its shape holding DF17 frames, card against CPU
+    cfg = fn.keywords["cfg"]
+    iq, truth = encoder.make_capture(encoder.random_df17_frames(6, seed=16),
+                                     snr_db=20.0, spacing=4000,
+                                     start=cfg.left_halo + 500, seed=16,
+                                     total_samples=args[0].shape[0])
+    block = np.stack([iq.real, iq.imag], -1).astype(np.float32)
+    card, cpu = G._host_table(fn(block)), G._host_table(cfn(block))
+    pc, pp = (pack_table(DetectionTable(*(torch.from_numpy(f) for f in t)))
+              .numpy() for t in (card, cpu))
+    _check_batch(pc, pp, "graft entry: entry() on frames", 1e-4)
+    got = {m.split()[1] for m in table_to_messages(card, 0,
+                                                   cfg.channel_rate)}
+    if not {t.hex for t in truth} <= got:
+        raise AssertionError(f"graft entry: entry() on frames decoded "
+                             f"{len(got)} of {len(truth)}")
+    print(f"graft entry: entry()'s step on a block of 6 DF17 frames == the "
+          f"CPU's, {int(card.n_detected)} detections, every frame decoded",
+          flush=True)
+    card_ms = time_ms(lambda: fn(*args))
+    host_ms = time_ms(lambda: fn(*args), device_only=False)
+    with graphs.disable():
+        eager_card = time_ms(lambda: fn(*args))
+        eager_host = time_ms(lambda: fn(*args), device_only=False)
+    print(f"graft entry: entry()'s step (demod_block_jit, block 2^15) "
+          f"graphed {host_ms:.5f} ms as the host sees it, {card_ms:.5f} ms "
+          f"on the card alone; eager {eager_host:.5f}, {eager_card:.5f} ms "
+          f"[{smi}]", flush=True)
+    _, types = graph_nodes(P.demod_block_jit, *args, **fn.keywords)
+    print(f"graft entry: entry()'s graph holds {types}", flush=True)
+    profile_step(lambda: fn(*args), smi)
+
+    launches = {}
+    for n in GRAFT_MESHES:
+        t1 = time.perf_counter()
+        # fresh captures, so that every planar step calls B1's and B2's
+        # wrappers (a cached graph replays without them)
+        S._planar_local.cache_clear()
+        S._resample_local.cache_clear()
+        K.reset_launches()
+        with _HeldB1B2() as rec:
+            if n == 1:
+                card = G.dryrun_multichip(n, dev)
+            else:
+                card = G._dryrun_steps(n, dev)
+        counts = dict(K.LAUNCHES, **K.DETECT_CANDS_ROUTES)
+        what = f"dryrun {G._mesh_shape(n)}"
+        planar = _graft_steps_vs_cpu(card, G._dryrun_steps(n, "cpu"), what)
+        if len(planar) != 4:
+            raise AssertionError(f"{what}: planar steps {planar}")
+        held = rec.check(what)
+        for s in card:
+            want = "planar" in s.name
+            got = s.launches["B1"] > 0 and s.launches["slice_windows"] > 0
+            h = held[s.name]
+            if got != want or (h["B1"][0] > 0 and h["B2"][0] > 0) != want:
+                raise AssertionError(f"{what} {s.name}: launches "
+                                     f"{s.launches}, wrapper calls held "
+                                     f"{h}")
+            if want:
+                print(f"graft entry: {what} {s.name}: B1 held on "
+                      f"{h['B1'][0]} calls ({h['B1'][1]} candidates), B2 "
+                      f"on {h['B2'][0]} ({h['B2'][1]} windows), each == "
+                      f"its plain version on the call's own inputs, bit "
+                      f"for bit", flush=True)
+        if counts["B1"] != sum(s.launches["B1"] for s in card) or \
+                counts["slice_windows"] != sum(s.launches["slice_windows"]
+                                               for s in card):
+            raise AssertionError(f"{what}: counts {counts} != the steps' "
+                                 f"sum")
+        launches = {"B1": counts["B1"],
+                    "slice_windows": counts["slice_windows"]}
+        print(f"graft entry: {what}: B1 launched {counts['B1']} times and "
+              f"B2 {counts['slice_windows']} times over {len(card)} steps, "
+              f"every planar step both ({time.perf_counter() - t1:.1f} s)",
+              flush=True)
+        # the dry run's inputs are noise: its planar steps again, on frames
+        t1 = time.perf_counter()
+        n_frames = _graft_frames(n, dev)
+        print(f"graft entry: {what}: the planar steps on {n_frames} DF17 "
+              f"frames ({time.perf_counter() - t1:.1f} s)", flush=True)
+
+    out = subprocess.run([sys.executable, "-m", "airmodes_torch.graft_entry"],
+                         cwd=here, capture_output=True, text=True,
+                         timeout=600)
+    name = torch.cuda.get_device_name(0)
+    if out.returncode != 0 or name not in out.stdout:
+        raise AssertionError(f"python -m airmodes_torch.graft_entry: exit "
+                             f"{out.returncode}, {out.stdout[-1000:]} "
+                             f"{out.stderr[-2000:]}")
+    for ln in out.stdout.splitlines():
+        print(f"graft entry cli: {ln}", flush=True)
+    torch.cuda.empty_cache()
+    print(f"graft entry: phase 21 took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return launches
+
+
 def _count(x):
     """The size of a figure's set of hexes (or ICAOs), or its count."""
     return len(x) if isinstance(x, (set, frozenset)) else x
@@ -3590,6 +4026,7 @@ def main() -> int:
         phase_entry_points(dev, tmp, smi)
         phase_bench(dev, smi)
         phase_graphs(cfg, dev, tmp, smi)
+        graft_launches = phase_graft_entry(dev, smi)
 
     half = cfg.nms_chips * cfg.sps
     b1_ms, b1_plain, b1_bytes, b1_samples = b1_t
@@ -3609,7 +4046,8 @@ def main() -> int:
                    "run_native_channels": chan_launches[k],
                    "run_resampled_fused": rs_launches[k],
                    "run_resampled_fused_channels": rs_chan_launches[k],
-                   "PodPipeline (2, 4) sharded": sh_launches[k]}
+                   "PodPipeline (2, 4) sharded": sh_launches[k],
+                   "graft_entry dryrun (1, 8)": graft_launches[k]}
                for k in ("B1", "slice_windows")}
     kernels = [
         {"name": "detect_cands (B1)", "route": "cuda",

@@ -55,7 +55,8 @@ def test_every_module_is_found():
                  "airmodes_torch.dist.multihost",
                  "airmodes_torch.testing.golden",
                  "airmodes_torch.kernels.opcount",
-                 "airmodes_torch.bench"):
+                 "airmodes_torch.bench",
+                 "airmodes_torch.graft_entry"):
         assert want in names
 
 
@@ -312,6 +313,26 @@ def test_every_reference_jit_site_is_graphed():
                     for n in ast.walk(_function_node(module, qualname))
                     if isinstance(n, (ast.Name, ast.Attribute))}
             assert name in used, (site, qualname, name)
+
+
+def _top_level_names(path):
+    """Every top-level function and class of a source file, private ones
+    included."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    return {n.name for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef,
+                              ast.ClassDef))}
+
+
+def test_graft_entry_names_are_ported():
+    """The reference's graft entry points (`__graft_entry__.py` at the
+    repository's root, outside `airmodes/`) have their counterpart in
+    `airmodes_torch.graft_entry`, name for name."""
+    want = _top_level_names(os.path.join(ROOT, "__graft_entry__.py"))
+    assert want == {"_tiny_cfg", "entry", "dryrun_multichip"}
+    assert want <= _top_level_names(
+        os.path.join(PKG, "graft_entry.py"))
 
 
 def test_every_renamed_or_tpu_only_name_exists_in_the_reference():
