@@ -21,6 +21,14 @@ call per time step down the channel axis):
 - the caller's thread does one `.cpu()` of the packed (C, K+1, 9) table per
   batch, then `unpack_table` and `table_to_messages`.
 
+Under a profiler each stage is a span (`utils.profiling.span`):
+`airmodes.frame` per block framed (on the thread that frames), with
+`airmodes.source_wait` inside it while the source has no block ready;
+`airmodes.dispatch` per step on the dispatch thread; on the caller's
+thread `airmodes.result_wait` on the dispatch queue, `airmodes.fetch` per
+`.cpu()` and `airmodes.decode` per block, each closed before the caller
+gets the messages.
+
 Host buffers are allocated per batch, as the reference does; page-locked
 ones come from PyTorch's caching host allocator, which does not hand a
 block out again until the copies recorded on it have finished, so a buffer
@@ -44,6 +52,7 @@ from ..dsp.pipeline import (_to_device, demod_batch_packed, resolve_device,
 from ..kernels.preamble import (demod_batch_packed_planar_jit, planar_length,
                                 supported_planar_tile)
 from ..utils.graphs import graphed
+from ..utils.profiling import span
 
 # The kernels rescale int8 by 1/127: a row quantized as round(f32 * scale)
 # has full scale scale/I8_SCALE (1.0 at scale = I8_SCALE), an AGC row
@@ -126,16 +135,18 @@ class _PlanarSource:
         or None at end of stream. scale=None selects per-block AGC
         (gain = 120/peak, full_scale = gain/127); a float fixes the gain
         (full_scale = scale/127). A set `stop` event ends the wait early
-        (returns None) so teardown never races a live native call."""
-        if scale is None:
-            nxt = self.stream.next_block_planar_agc(out_i, out_q,
-                                                    target=120.0, stop=stop)
-            if nxt is None:
-                return None
-            start, gain = nxt
-            return start, gain / I8_SCALE
-        nxt = self.stream.next_block_planar_i8(out_i, out_q, scale=scale,
-                                               stop=stop)
+        (returns None) so teardown never races a live native call. One
+        span `airmodes.frame` a call."""
+        with span("airmodes.frame"):
+            if scale is None:
+                nxt = self.stream.next_block_planar_agc(
+                    out_i, out_q, target=120.0, stop=stop)
+                if nxt is None:
+                    return None
+                start, gain = nxt
+                return start, gain / I8_SCALE
+            nxt = self.stream.next_block_planar_i8(out_i, out_q,
+                                                   scale=scale, stop=stop)
         if nxt is None:
             return None
         return nxt, scale / I8_SCALE
@@ -178,7 +189,9 @@ def _pipeline(produce, dispatch, depth, on_exit):
                     break
                 if isinstance(item, BaseException):
                     raise item
-                out_q.put(dispatch(item))
+                with span("airmodes.dispatch"):
+                    res = dispatch(item)
+                out_q.put(res)
         except BaseException as e:  # surface in the consumer
             out_q.put(e)
         finally:
@@ -192,7 +205,8 @@ def _pipeline(produce, dispatch, depth, on_exit):
     dth.start()
     try:
         while True:
-            item = out_q.get()
+            with span("airmodes.result_wait"):
+                item = out_q.get()
             if item is sentinel:
                 break
             if isinstance(item, BaseException):
@@ -303,12 +317,15 @@ def run_native_pipelined(
     for packed, rows in _pipeline(
             produce, lambda it: (step(it[0], it[1]), it[2]), depth,
             on_exit):
-        arr = packed.cpu().numpy()
+        with span("airmodes.fetch"):
+            arr = packed.cpu().numpy()
         for j, (start, fs) in enumerate(rows):
-            table = unpack_table(arr[j])
-            yield host_mod.table_to_messages(
-                table, start, cfg.channel_rate, epoch=epoch, stats=stats,
-                full_scale=fs)
+            with span("airmodes.decode"):
+                table = unpack_table(arr[j])
+                msgs = host_mod.table_to_messages(
+                    table, start, cfg.channel_rate, epoch=epoch,
+                    stats=stats, full_scale=fs)
+            yield msgs
 
 
 def run_native_channels(
@@ -404,14 +421,16 @@ def run_native_channels(
     for packed, starts, scales, live in _pipeline(
             produce, lambda it: (step(it[0], it[1]),) + it[2:], depth,
             on_exit):
-        arr = packed.cpu().numpy()
+        with span("airmodes.fetch"):
+            arr = packed.cpu().numpy()
         out: List[Optional[List[str]]] = []
         for c in range(C):
             if not live[c]:
                 out.append(None)
                 continue
-            table = unpack_table(arr[c])
-            out.append(host_mod.table_to_messages(
-                table, starts[c], cfg.channel_rate, epoch=epoch,
-                stats=stats, full_scale=scales[c]))
+            with span("airmodes.decode"):
+                table = unpack_table(arr[c])
+                out.append(host_mod.table_to_messages(
+                    table, starts[c], cfg.channel_rate, epoch=epoch,
+                    stats=stats, full_scale=scales[c]))
         yield out

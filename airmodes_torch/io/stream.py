@@ -28,6 +28,13 @@ runners stack each batch into one, and an entry holds its buffer until it
 is drained, so nothing is refilled in flight. The step itself never waits
 on the card; packed tables stay there until the drain fetches them, one
 `.cpu()` per entry, in order.
+
+Under a profiler, `_pump`'s runners name their stages with spans
+(`utils.profiling.span`), all on the caller's thread and none open across
+a `yield`: `airmodes.frame` around taking each block from the source
+(with `airmodes.source_wait` inside it around each read of the fused
+runner's capture), `airmodes.dispatch` per step, `airmodes.fetch` per
+`.cpu()` of an entry and `airmodes.decode` per block's table.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ from ..kernels.preamble import (demod_batch_packed_fast_jit,
                                 demod_block_packed_fast_jit,
                                 supported_2d_tile, supported_planar_tile,
                                 to_planar_i8)
+from ..utils.profiling import span
 
 
 def _host(x: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -147,13 +155,15 @@ def _make_drain(cfg, epoch, stats, on_messages, batched: bool):
     `on_messages` when given."""
     def drain(entry):
         packed, starts, scales, n_real, _ = entry
-        arr = packed.cpu().numpy()
+        with span("airmodes.fetch"):
+            arr = packed.cpu().numpy()
         out = []
         for j in range(n_real):
-            table = unpack_table(arr[j] if batched else arr)
-            msgs = host_mod.table_to_messages(
-                table, starts[j], cfg.channel_rate, epoch=epoch,
-                stats=stats, full_scale=scales[j])
+            with span("airmodes.decode"):
+                table = unpack_table(arr[j] if batched else arr)
+                msgs = host_mod.table_to_messages(
+                    table, starts[j], cfg.channel_rate, epoch=epoch,
+                    stats=stats, full_scale=scales[j])
             if on_messages:
                 on_messages(msgs)
             out.append(msgs)
@@ -161,22 +171,34 @@ def _make_drain(cfg, epoch, stats, on_messages, batched: bool):
     return drain
 
 
+_END = object()
+
+
 def _pump(items, batch: int, depth: int, dispatch, drain):
     """Group `batch` items per dispatch(group) (a trailing partial group is
     the dispatcher's to pad; its entry carries n_real so the drain drops
     the padding), keep `depth` dispatched entries in flight, drain in
-    order."""
+    order. Spans: `airmodes.frame` per item taken (and one for the take
+    that finds the end), `airmodes.dispatch` per group; `drain` returns a
+    group's lists before any is yielded."""
     inflight: deque = deque()
     acc: List = []
-    for item in items:
+    items = iter(items)
+    while True:
+        with span("airmodes.frame"):
+            item = next(items, _END)
+        if item is _END:
+            break
         acc.append(item)
         if len(acc) == batch:
-            inflight.append(dispatch(acc))
+            with span("airmodes.dispatch"):
+                inflight.append(dispatch(acc))
             acc = []
             if len(inflight) > depth:
                 yield from drain(inflight.popleft())
     if acc:
-        inflight.append(dispatch(acc))
+        with span("airmodes.dispatch"):
+            inflight.append(dispatch(acc))
     while inflight:
         yield from drain(inflight.popleft())
 
@@ -332,9 +354,14 @@ def _raw_windows(path, cfg, dtype, in_skip, geometry, max_blocks):
     framer = src_mod.buffered_framer(cfg, start_sample=0, geometry=geometry)
 
     def gen():
-        for chunk in src_mod.raw_file_chunks(path, dtype=dtype,
-                                             chunk_samples=1 << 22,
-                                             offset_samples=in_skip):
+        chunks = src_mod.raw_file_chunks(path, dtype=dtype,
+                                         chunk_samples=1 << 22,
+                                         offset_samples=in_skip)
+        while True:
+            with span("airmodes.source_wait"):
+                chunk = next(chunks, None)
+            if chunk is None:
+                break
             yield from framer.push(chunk)
         yield from framer.flush()
     return itertools.islice(gen(), max_blocks)
@@ -374,14 +401,16 @@ def _make_fused_drain(cfg, epoch, stats, on_messages, req_start: int):
 
     def drain(entry):
         (packed, gains), starts, n_real, _ = entry
-        arr = packed.cpu().numpy()
-        gs = gains.cpu().numpy()
+        with span("airmodes.fetch"):
+            arr = packed.cpu().numpy()
+            gs = gains.cpu().numpy()
         out = []
         for j in range(n_real):
-            table = unpack_table(arr[j])
-            msgs = host_mod.table_to_messages(
-                table, starts[j], cfg.channel_rate, epoch=epoch,
-                stats=stats, full_scale=float(gs[j]) / 127.0)
+            with span("airmodes.decode"):
+                table = unpack_table(arr[j])
+                msgs = host_mod.table_to_messages(
+                    table, starts[j], cfg.channel_rate, epoch=epoch,
+                    stats=stats, full_scale=float(gs[j]) / 127.0)
             if starts[j] < req_start:
                 msgs = [m for m in msgs if _sample_of(m) >= req_start]
             if on_messages:

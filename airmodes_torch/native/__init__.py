@@ -3,9 +3,10 @@
 A copy of `airmodes.native` (the C++ framer: a file or UDP pump thread,
 ring buffer, overlap-save framing as f32 blocks, or int8 quantization with
 per-block AGC or a fixed gain and the planar I/Q split) and of its loader,
-which imports only the standard library and numpy. Builds the shared
-library on first use with g++ (cached next to the source). Python<->C
-boundary is a C ABI — no pybind11 dependency."""
+which imports only the standard library, numpy and the port's profiler
+span (`utils.profiling.span`, around a wait for the source). Builds the
+shared library on first use with g++ (cached next to the source).
+Python<->C boundary is a C ABI — no pybind11 dependency."""
 
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ import threading
 from typing import Optional, Tuple
 
 import numpy as np
+
+from ..utils.profiling import span
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "iqstream.cc")
@@ -101,6 +104,8 @@ def load() -> ctypes.CDLL:
             ctypes.POINTER(i64), f32, ctypes.POINTER(f32)]
         lib.iq_stream_available.restype = u64
         lib.iq_stream_available.argtypes = [vp]
+        lib.iq_stream_ready.restype = ctypes.c_int
+        lib.iq_stream_ready.argtypes = [vp]
         _lib = lib
         return lib
 
@@ -316,7 +321,6 @@ class IQStream:
         zero-padded past the frame) in one fused native pass, with the
         fixed gain int8 = round(f32 * scale); returns the start sample, or
         None at end of stream. Blocks until data is available."""
-        import time as _t
         self._check_planar_out(out_i, out_q)
         start = ctypes.c_int64(0)
         while not (stop is not None and stop.is_set()):
@@ -334,7 +338,7 @@ class IQStream:
             if rc == -2:
                 raise ValueError(
                     f"planar row too short: {out_i.size} < {self.total}")
-            _t.sleep(0.001)
+            self._wait_for_block(stop)
 
     def next_block_planar_agc(self, out_i: np.ndarray, out_q: np.ndarray,
                               target: float = 120.0, stop=None
@@ -342,7 +346,6 @@ class IQStream:
         """Planar int8 framing with per-block AGC (gain = target/peak over
         the framed block, Python quantize_i8 semantics); returns
         (start_sample, gain) or None at end of stream."""
-        import time as _t
         self._check_planar_out(out_i, out_q)
         start = ctypes.c_int64(0)
         gain = ctypes.c_float(1.0)
@@ -361,7 +364,23 @@ class IQStream:
             if rc == -2:
                 raise ValueError(
                     f"planar row too short: {out_i.size} < {self.total}")
-            _t.sleep(0.001)
+            self._wait_for_block(stop)
+
+    def _wait_for_block(self, stop) -> None:
+        """After a framing call found no block: wait, in one span
+        `airmodes.source_wait`, until the ring holds a whole block or the
+        source has ended (or `stop` is set, or the stream is closed),
+        polling the ring's fill every 1 ms rather than the framing call, so
+        the framing that follows is not billed to the wait."""
+        import time as _t
+        with span("airmodes.source_wait"):
+            while True:
+                _t.sleep(0.001)
+                if stop is not None and stop.is_set():
+                    return
+                with self._lock:
+                    if not self._h or self._lib.iq_stream_ready(self._h):
+                        return
 
     def _check_out(self, out, dtype) -> None:
         # the C side unconditionally writes total*2 elements: a wrong

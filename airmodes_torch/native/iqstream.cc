@@ -539,4 +539,14 @@ uint64_t iq_stream_available(void* h) {
   return ring_avail(static_cast<Stream*>(h)->ring);
 }
 
+// 1 when the next framing call has a block or the end to return: the ring
+// holds a whole block's samples (block + right) or the source has ended;
+// else 0. A consumer waiting for the source polls this, not the framing
+// call, and frames once it reads 1.
+int iq_stream_ready(void* h) {
+  auto* s = static_cast<Stream*>(h);
+  return ring_avail(s->ring) >= s->block + s->right ||
+         s->ring.eof.load(std::memory_order_acquire);
+}
+
 }  // extern "C"

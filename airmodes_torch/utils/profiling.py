@@ -64,17 +64,34 @@ def trace(logdir: Optional[str]) -> Iterator[None]:
         logdir, f"trace_{os.getpid()}_{int(time.time())}.json"))
 
 
-def kernel_range(name: str):
-    """A profiler range named `name` ("<ID> <kernel>", the IDs of PERF.md's
-    kernel table, e.g. "B1 detect_cands") around one hand-kernel launch,
-    or around its plain version for CPU tensors: the counterpart of the
-    reference trace naming its Pallas kernels. Opened only while a
-    profiler records; otherwise a no-op, since a range costs microseconds
-    of host time per launch."""
+# the context span() returns while no profiler records: made once, so a
+# call allocates nothing (a nullcontext holds no state and may be entered
+# by many threads at once)
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range named `name` around a piece of host work, in the
+    profiler's trace on its clock, beside the card's events. Opened only
+    while a profiler records (`profiler()`, which `trace()`, `modes_rx
+    --profile` and the benchmark open); otherwise the one shared no-op
+    context, since a range costs microseconds of host time.
+
+    The runners name theirs `airmodes.<stage>` (io/native_stream.py,
+    io/stream.py, native/__init__.py). Open and close a span on one thread,
+    and never across a `yield`: the time between would be the caller's."""
     import torch
     if torch.autograd.profiler._is_profiler_enabled:
         return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
+    return _OFF
+
+
+def kernel_range(name: str):
+    """The span (`span`) named `name` ("<ID> <kernel>", the IDs of PERF.md's
+    kernel table, e.g. "B1 detect_cands") around one hand-kernel launch,
+    or around its plain version for CPU tensors: the counterpart of the
+    reference trace naming its Pallas kernels."""
+    return span(name)
 
 
 class RateMeter:
