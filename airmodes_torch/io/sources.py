@@ -132,18 +132,30 @@ class buffered_framer:
         self._have = 0
 
 
+# a capture's file format -> (numpy type of its I and Q words, offset,
+# scale): a sample's I or Q is (word - offset) * scale in f32, one rounding
+# each (complex64 words are the samples). Read by raw_file_chunks and by
+# the fused runners, whose kernel R1 converts the words on the card.
+WIRE_FORMATS = {
+    "complex64": (np.float32, 0.0, 1.0),
+    "sc16": (np.int16, 0.0, 1.0 / 32768.0),
+    "uc8": (np.uint8, 127.5, 1.0 / 127.5),
+}
+
+
 def raw_file_chunks(path: str, *, dtype: str = "complex64",
                     chunk_samples: int = 1 << 20,
                     offset_samples: int = 0) -> Iterator[np.ndarray]:
     """Raw complex64 chunks from a recorded capture (no framing), converted
     from complex64, interleaved int16 ("sc16", /32768) or rtl-sdr uint8
-    ("uc8", offset 127.5). offset_samples seeks into the capture."""
-    bytes_per = {"complex64": 8, "sc16": 4, "uc8": 2}.get(dtype)
-    if bytes_per is None:
+    ("uc8", offset 127.5) as WIRE_FORMATS says. offset_samples seeks into
+    the capture."""
+    if dtype not in WIRE_FORMATS:
         raise ValueError(f"unknown file dtype {dtype}")
+    word, offset, scale = WIRE_FORMATS[dtype]
     with open(path, "rb") as f:
         if offset_samples:
-            f.seek(offset_samples * bytes_per)
+            f.seek(offset_samples * 2 * np.dtype(word).itemsize)
         while True:
             # I/Q are interleaved in the file exactly as complex64 lays out
             # (re, im) — scale the flat f32 stream in place and VIEW it as
@@ -151,18 +163,13 @@ def raw_file_chunks(path: str, *, dtype: str = "complex64",
             # (3 sequential passes instead of 6 strided ones)
             if dtype == "complex64":
                 samples = np.fromfile(f, np.complex64, chunk_samples)
-            elif dtype == "sc16":
-                raw = np.fromfile(f, np.int16, chunk_samples * 2)
+            else:
+                raw = np.fromfile(f, word, chunk_samples * 2)
                 raw = raw[: len(raw) // 2 * 2]   # drop a truncated half-sample
                 flat = raw.astype(np.float32)
-                flat *= np.float32(1.0 / 32768.0)
-                samples = flat.view(np.complex64)
-            else:  # uc8 (validated above)
-                raw = np.fromfile(f, np.uint8, chunk_samples * 2)
-                raw = raw[: len(raw) // 2 * 2]
-                flat = raw.astype(np.float32)
-                flat -= np.float32(127.5)
-                flat *= np.float32(1.0 / 127.5)
+                if offset:
+                    flat -= np.float32(offset)
+                flat *= np.float32(scale)
                 samples = flat.view(np.complex64)
             if len(samples) == 0:
                 return

@@ -16,9 +16,12 @@ Route selection copies the reference as it runs on its accelerator:
 
 The resampled front end (`run_resampled_fused` and
 `run_resampled_fused_channels`, the counterparts of the reference's runners
-of those names) frames raw-rate windows of a capture and runs one fused
-device step per batch: group-matmul resample, device AGC and int8 quantize,
-the planar demod (kernels B1 and B2), as `resample.fused` sets out.
+of those names) reads raw-rate windows of a capture as the file holds its
+words (sc16, uc8 or complex64) into page-locked batch buffers, with no
+conversion on the host, and runs one fused device step per batch: kernel R1
+turns the words into planar f32 windows, then group-matmul resample, device
+AGC and int8 quantize, the planar demod (kernels B1 and B2) in the graph of
+`resample_demod_packed_planar_jit`, as `resample.fused` sets out.
 
 Each device step is a compiled step (a `*_jit` entry point: one captured
 CUDA graph per shape on a card, `utils.graphs`), as the reference's runners
@@ -39,7 +42,6 @@ runner's capture), `airmodes.dispatch` per step, `airmodes.fetch` per
 
 from __future__ import annotations
 
-import itertools
 from collections import deque
 from typing import Callable, Iterable, Iterator, List, Optional, Tuple
 
@@ -48,7 +50,8 @@ import torch
 
 from ..config import DspConfig
 from ..dsp import host as host_mod
-from ..resample.fused import raw_geometry, resample_demod_packed_planar_jit
+from ..resample.fused import (raw_geometry, raw_to_planar,
+                              resample_demod_packed_planar_jit)
 from ..resample.polyphase import rational_rate
 from . import sources as src_mod
 from ..dsp.pipeline import (demod_batch_packed_jit, demod_block_packed_jit,
@@ -327,44 +330,155 @@ def run_channels(
         yield drain_one()
 
 
-# --- the resampled front end: raw-rate windows -> fused device step ---------
+# --- the resampled front end: a capture's words -> fused device step --------
 
-def _stack_planar(rows: List[Optional[np.ndarray]], pinned: bool):
-    """(C, 2, W) f32 planar tensor of complex64 raw windows (None rows are
-    silence), written straight into page-locked memory when the batch goes
-    to a card: the I and Q planes are strided copies out of each window,
-    with no interleaved intermediate. The caller holds the tensor until
-    its entry is drained."""
-    w = next(len(r) for r in rows if r is not None)
-    out = torch.empty((len(rows), 2, w), dtype=torch.float32,
-                      pin_memory=pinned)
-    buf = out.numpy()
-    for j, r in enumerate(rows):
-        if r is None:
-            buf[j] = 0.0
+class _RawReader:
+    """One capture's raw-rate windows, read as the file holds its words
+    (`io.sources.WIRE_FORMATS`) straight into the caller's rows.
+
+    Window k holds the raw samples [k*block - left, k*block + block + right)
+    from the seek point, zero outside the capture: the windows that
+    `io.sources.buffered_framer` frames with the fused geometry, its
+    flush's zero-padded tail windows included (one per block that owns a
+    sample), without a complex64 conversion. `take` fills one window's
+    (W, 2) rows: the left + right samples it shares with the previous
+    window from a carry, the rest from the file on an unbuffered handle,
+    read in a loop with `airmodes.source_wait` around each read; a read
+    that returns nothing ends the capture, a trailing partial sample is
+    dropped. The rows outside the capture are not written: `take` names
+    the range of those that hold its samples, and the fused step writes
+    0.0 elsewhere (kernel R1; a uc8 word cannot stand for 0.0)."""
+
+    def __init__(self, path: str, dtype: str, in_skip: int, geometry):
+        if dtype not in src_mod.WIRE_FORMATS:
+            raise ValueError(f"unknown file dtype {dtype}")
+        word = np.empty(0, src_mod.WIRE_FORMATS[dtype][0])
+        self.wire = torch.from_numpy(word).dtype
+        self._bps = 2 * word.itemsize
+        self._path, self._skip = path, in_skip
+        self.left, self.block, self.right = geometry
+        self._f = None
+        self._carry = None          # the next window's first left + right
+        self._read = 0              # whole samples read
+        self._eof = False
+        self._taken = 0
+
+    def take(self, row: np.ndarray) -> Optional[Tuple[int, int, int]]:
+        """Fill `row` with the next window: (its raw start, the range
+        [lo, hi) of the rows that hold capture samples), or None once the
+        capture has no further sample."""
+        left, block, right = self.left, self.block, self.right
+        if self._f is None:
+            self._f = open(self._path, "rb", buffering=0)
+            if self._skip:
+                self._f.seek(self._skip * self._bps)
+            self._fill(row[left:])
         else:
-            buf[j, 0] = r.real
-            buf[j, 1] = r.imag
-    return out
+            row[:left + right] = self._carry
+            self._fill(row[left + right:])
+        start = self._taken * block
+        if self._read <= start:
+            self.close()
+            return None
+        self._carry = row[block: block + left + right].copy()
+        self._taken += 1
+        return (start, left if start == 0 else 0,
+                min(len(row), self._read - start + left))
 
-
-def _raw_windows(path, cfg, dtype, in_skip, geometry, max_blocks):
-    """Raw-rate windows (complex64, raw start counted from the seek point)
-    of a capture file, framed with the fused path's geometry."""
-    framer = src_mod.buffered_framer(cfg, start_sample=0, geometry=geometry)
-
-    def gen():
-        chunks = src_mod.raw_file_chunks(path, dtype=dtype,
-                                         chunk_samples=1 << 22,
-                                         offset_samples=in_skip)
-        while True:
+    def _fill(self, out: np.ndarray) -> None:
+        mem = memoryview(out).cast("B")
+        pos = 0
+        while pos < len(mem) and not self._eof:
             with span("airmodes.source_wait"):
-                chunk = next(chunks, None)
-            if chunk is None:
-                break
-            yield from framer.push(chunk)
-        yield from framer.flush()
-    return itertools.islice(gen(), max_blocks)
+                got = self._f.readinto(mem[pos:])
+            if got:
+                pos += got
+            else:
+                self._eof = True
+        self._read += pos // self._bps
+
+    def close(self) -> None:
+        if self._f is not None:
+            self._f.close()
+            self._eof = True
+
+
+def _raw_windows(reader: _RawReader, batch: int, max_blocks, pinned: bool):
+    """One capture's windows for `_pump`: (batch buffer, raw start, valid
+    range) per window. The buffer of a batch is one page-locked (n, 2)
+    tensor of the file's words holding the contiguous raw span that its
+    `batch` overlapping windows cover, n = (batch - 1) * block + W: window
+    j is rows [j*block, j*block + W), so each raw sample is read once and
+    only the left + right halo is carried into the next batch's buffer."""
+    block = reader.block
+    width = reader.left + block + reader.right
+    n = (batch - 1) * block + width
+    taken = 0
+    try:
+        while max_blocks is None or taken < max_blocks:
+            j = taken % batch
+            if j == 0:
+                owner = torch.empty((n, 2), dtype=reader.wire,
+                                    pin_memory=pinned)
+                buf = owner.numpy()
+            got = reader.take(buf[j * block: j * block + width])
+            if got is None:
+                return
+            taken += 1
+            yield owner, got[0], got[1:]
+    finally:
+        reader.close()
+
+
+def _channel_windows(readers: List[_RawReader], max_blocks, pinned: bool):
+    """Several captures' windows, one step at a time: (buffer, valid
+    ranges, raw starts, live) per step while a channel has a window. The
+    buffer is one page-locked (C * W, 2) tensor of the files' words with
+    channel c's window in rows [c*W, (c+1)*W), the valid ranges a
+    page-locked (C, 2) int32 tensor; an ended channel's range is empty,
+    its start 0 and its `live` entry False from then on."""
+    C = len(readers)
+    width = readers[0].left + readers[0].block + readers[0].right
+    live = [True] * C
+    k = 0
+    try:
+        while max_blocks is None or k < max_blocks:
+            owner = torch.empty((C * width, 2), dtype=readers[0].wire,
+                                pin_memory=pinned)
+            valid = torch.zeros((C, 2), dtype=torch.int32,
+                                pin_memory=pinned)
+            buf, rng = owner.numpy(), valid.numpy()
+            raw_starts = [0] * C
+            for c, rd in enumerate(readers):
+                got = rd.take(buf[c * width: (c + 1) * width]) \
+                    if live[c] else None
+                if got is None:
+                    live[c] = False
+                else:
+                    raw_starts[c] = got[0]
+                    rng[c] = got[1:]
+            if not any(live):
+                return
+            yield owner, valid, raw_starts, list(live)
+            k += 1
+    finally:
+        for rd in readers:
+            rd.close()
+
+
+def _raw_step(cfg, p: int, q: int, stride: int, dev: torch.device):
+    """The fused runners' step on a batch buffer of a capture's words and
+    its (C, 2) valid ranges: kernel R1's planar windows (its plain version
+    on the CPU) through the fused step's graph. Returns the step's
+    ((C, K+1, 9) packed table, (C,) gains)."""
+    width = sum(raw_geometry(cfg, p, q)[:3])
+
+    def step(raw, valid, gain):
+        x = raw_to_planar(raw.to(dev, non_blocking=True),
+                          valid.to(dev, non_blocking=True), width, stride)
+        return resample_demod_packed_planar_jit(x, gain, cfg, p, q,
+                                                device=dev)
+    return step
 
 
 def _fused_setup(cfg, rate_in, start_sample):
@@ -384,7 +498,7 @@ def _fused_setup(cfg, rate_in, start_sample):
 
 def _make_fused_drain(cfg, epoch, stats, on_messages, req_start: int):
     """Drainer for the fused runners: entry = ((packed table, device-AGC
-    gains), starts, n_real, host buffer) -> per-block wire-message lists,
+    gains), starts, n_real, host buffers) -> per-block wire-message lists,
     with full_scale = gain/127 per row; messages before the requested
     resume point (possible only in a snapped first window) are dropped."""
     epoch_ns = int(round(epoch * 1e9))
@@ -436,32 +550,40 @@ def run_resampled_fused(
     on_messages: Optional[Callable[[List[str]], None]] = None,
     device="cuda",
 ) -> Iterator[List[str]]:
-    """The resampled front end of one capture on the card: raw-rate
-    windows (resample.fused.raw_geometry) -> one fused device step per
-    batch (group-matmul resample, device AGC or the fixed gain `scale`,
-    int8 quantize, the planar demod with kernels B1 and B2) -> wire
-    messages. Yields the wire-message list per block, in stream order, and
-    hands each to `on_messages` when given; a partial last batch is padded
-    with its last window. start_sample is in channel-rate samples. Runs on
-    the card unless `device` asks for the CPU; with no card and the
-    default device it raises before opening the capture."""
+    """The resampled front end of one capture on the card: the capture's
+    words, read into one page-locked buffer per batch of raw-rate windows
+    (resample.fused.raw_geometry; `_raw_windows`) -> one fused device step
+    per batch (kernel R1's planar windows, group-matmul resample, device
+    AGC or the fixed gain `scale`, int8 quantize, the planar demod with
+    kernels B1 and B2) -> wire messages. Yields the wire-message list per
+    block, in stream order, and hands each to `on_messages` when given; a
+    partial last batch is padded with zero windows. start_sample is in
+    channel-rate samples. Runs on the card unless `device` asks for the
+    CPU; with no card and the default device it raises before opening the
+    capture."""
     dev = resolve_device(device)
     pinned = dev.type == "cuda"
     p_up, q_dn, geometry, start, in_skip = _fused_setup(cfg, rate_in,
                                                          start_sample)
     gain = None if scale is None else np.float32(scale)
+    block = geometry[1]
+    step = _raw_step(cfg, p_up, q_dn, block, dev)
 
     def dispatch(acc):
         n_real = len(acc)
-        x = _stack_planar([w for w, _ in acc]
-                          + [acc[-1][0]] * (batch - n_real), pinned)
-        out = resample_demod_packed_planar_jit(x, gain, cfg, p_up, q_dn,
-                                               device=dev)
+        buf = acc[0][0]
+        # rows past the last real window: an empty range (zeros), their
+        # tables dropped
+        valid = torch.zeros((batch, 2), dtype=torch.int32, pin_memory=pinned)
+        valid.numpy()[:n_real] = [r for _, _, r in acc]
+        out = step(buf, valid, gain)
         # raw start k*raw_block -> channel-rate start + k*block
-        return (out, [start + s * p_up // q_dn for _, s in acc], n_real, x)
+        return (out, [start + s * p_up // q_dn for _, s, _ in acc], n_real,
+                (buf, valid))
 
-    yield from _pump(_raw_windows(path, cfg, dtype, in_skip, geometry,
-                                  max_blocks), batch, depth, dispatch,
+    reader = _RawReader(path, dtype, in_skip, geometry)
+    yield from _pump(_raw_windows(reader, batch, max_blocks, pinned), batch,
+                     depth, dispatch,
                      _make_fused_drain(cfg, epoch, stats, on_messages,
                                        start_sample))
 
@@ -481,20 +603,20 @@ def run_resampled_fused_channels(
     device="cuda",
 ) -> Iterator[List[Optional[List[str]]]]:
     """Multi-channel twin of run_resampled_fused: C raw-rate captures, one
-    batched fused device step per time step down the channel axis. Yields
-    one list per step; ended channels ride along as zero windows and yield
-    None (the run_channels contract). Runs on the card unless `device`
-    asks for the CPU."""
+    batched fused device step per time step down the channel axis (row c
+    of a step's buffer holds channel c's window, as its file's words).
+    Yields one list per step; ended channels ride along as zero windows
+    and yield None (the run_channels contract). Runs on the card unless
+    `device` asks for the CPU."""
     dev = resolve_device(device)
     pinned = dev.type == "cuda"
     p_up, q_dn, geometry, start, in_skip = _fused_setup(cfg, rate_in,
                                                          start_sample)
-    iters = [iter(_raw_windows(p, cfg, dtype, in_skip, geometry, max_blocks))
-             for p in paths]
-    C = len(iters)
+    C = len(paths)
     if C == 0:
         return
     gain = None if scale is None else np.float32(scale)
+    step = _raw_step(cfg, p_up, q_dn, sum(geometry), dev)
     inflight: deque = deque()
     fused_drain = _make_fused_drain(cfg, epoch, stats, None, start_sample)
 
@@ -503,19 +625,16 @@ def run_resampled_fused_channels(
         msgs = fused_drain(entry)
         return [msgs[c] if live[c] else None for c in range(C)]
 
-    while True:
-        items = [next(it, None) for it in iters]
-        live = [i is not None for i in items]
-        if not any(live):
-            break
-        x = _stack_planar([i[0] if i is not None else None for i in items],
-                          pinned)
-        starts = [start + (items[c][1] * p_up // q_dn if live[c] else 0)
-                  for c in range(C)]
-        out = resample_demod_packed_planar_jit(x, gain, cfg, p_up, q_dn,
-                                               device=dev)
-        inflight.append(((out, starts, C, x), live))
-        if len(inflight) > depth:
-            yield drain_one()
+    steps = _channel_windows([_RawReader(p, dtype, in_skip, geometry)
+                              for p in paths], max_blocks, pinned)
+    try:
+        for owner, valid, raw_starts, live in steps:
+            starts = [start + s * p_up // q_dn for s in raw_starts]
+            out = step(owner, valid, gain)
+            inflight.append(((out, starts, C, (owner, valid)), live))
+            if len(inflight) > depth:
+                yield drain_one()
+    finally:
+        steps.close()
     while inflight:
         yield drain_one()

@@ -54,6 +54,9 @@ SIGNATURES = {
         "detect_mask_launch": [_vp, _vp, _vp, _i, _ll, _ll, _ll, _i, _i, _i,
                                _i, _i, _f, _f, _f, _f, _vp],
     },
+    "raw_planar": {
+        "raw_planar_launch": [_vp, _vp, _vp, _i, _i, _ll, _i, _f, _f, _vp],
+    },
     # the probes (airmodes_torch/probes/)
     "bw_probe": {
         "bw_copy_launch": [_vp, _vp, _ll, _ll, _ll, _vp],

@@ -84,8 +84,9 @@ _CHUNK = 4096                              # owned samples per detect CUDA block
 _EARLY_QUIET_CHIPS = (1, 3, 4, 5, 6)       # the quiet chips B5p tests
 
 # kernel launches since the last reset_launches(), per wrapper; only the
-# CUDA paths count
-LAUNCHES = {"detect_cands": 0, "slice_windows": 0, "detect_mask": 0}
+# CUDA paths count ("raw_planar": kernel R1 of resample.fused)
+LAUNCHES = {"detect_cands": 0, "slice_windows": 0, "detect_mask": 0,
+            "raw_planar": 0}
 # detect_cands launches by variant: B1 (unordered), B5o (ordered=True) and
 # B5p (prescreen=True)
 DETECT_CANDS_ROUTES = {"B1": 0, "B5o": 0, "B5p": 0}

@@ -6,8 +6,14 @@ group matmuls (`polyphase.resample_groups_halo`, f32 with TF32 off), the
 per-channel device AGC and the int8 quantize are torch ops, as they are XLA
 ops in the reference; the demod is the port's planar path,
 `kernels.preamble.demod_batch_planar`, which launches kernels B1 and B2 on
-a card. Used by `io.stream.run_resampled_fused` and
-`run_resampled_fused_channels`.
+a card.
+
+The port's fused runners (`io.stream.run_resampled_fused` and
+`run_resampled_fused_channels`) go one step further than the reference:
+they send a capture's words as the file holds them (sc16, uc8 or
+complex64), and kernel R1 (`kernels/csrc/raw_planar.cu`, `raw_to_planar`;
+`raw_planar_plain` on the CPU) converts them on the card into the planar
+windows that the fused step takes.
 """
 
 from __future__ import annotations
@@ -20,9 +26,17 @@ import torch.nn.functional as F
 
 from ..config import DspConfig
 from ..dsp.pipeline import pack_table, resolve_device
-from ..kernels.preamble import LAUNCH_COUNTERS
+from ..io.sources import WIRE_FORMATS
+from ..kernels.preamble import LAUNCH_COUNTERS, LAUNCHES
 from ..utils.graphs import graphed
+from ..utils.profiling import kernel_range
 from .polyphase import _GROUP_PQ_CAP, resample_groups_halo
+
+# R1's word types (its format codes) -> the file format whose words they
+# are, and that format's (offset, scale), from io.sources.WIRE_FORMATS
+_R1_CODES = {torch.float32: 2, torch.int16: 0, torch.uint8: 1}
+_BY_DTYPE = {torch.from_numpy(np.empty(0, word)).dtype: (offset, scale)
+             for word, offset, scale in WIRE_FORMATS.values()}
 
 
 def quantize_i8(x: torch.Tensor, gain) -> torch.Tensor:
@@ -158,3 +172,78 @@ def resample_demod_packed_planar_jit(iq_raw, gain, cfg: DspConfig, p: int,
     return resample_demod_packed_planar(iq_raw, gain, cfg, p, q,
                                         taps_per_phase=taps_per_phase,
                                         tile=tile, device=device)
+
+
+# --- the capture's words to planar windows: kernel R1 ------------------------
+
+def _raw_rows(raw: torch.Tensor, valid: torch.Tensor, width: int,
+              stride: int) -> int:
+    """Windows in a raw batch buffer: a contiguous (n, 2) tensor of a wire
+    format's words with n = (rows - 1) * stride + width, and `valid` a
+    (rows, 2) int32 tensor on its device."""
+    if raw.dtype not in _BY_DTYPE:
+        raise TypeError(f"raw words must be one of {list(_BY_DTYPE)}, "
+                        f"got {raw.dtype}")
+    if raw.dim() != 2 or raw.shape[1] != 2 or not raw.is_contiguous():
+        raise ValueError(f"raw words must be a contiguous (n, 2) tensor, got "
+                         f"{tuple(raw.shape)}")
+    n = raw.shape[0]
+    if n < width or (n - width) % stride:
+        raise ValueError(f"{n} raw samples are not (rows - 1) * {stride} + "
+                         f"{width}")
+    rows = (n - width) // stride + 1
+    if tuple(valid.shape) != (rows, 2) or valid.dtype != torch.int32 \
+            or not valid.is_contiguous() or valid.device != raw.device:
+        raise ValueError(f"valid ranges must be a contiguous ({rows}, 2) "
+                         f"int32 tensor on {raw.device}")
+    return rows
+
+
+def raw_planar_plain(raw: torch.Tensor, valid: torch.Tensor, width: int,
+                     stride: int) -> torch.Tensor:
+    """Plain PyTorch version of kernel R1: (rows, 2, width) f32 planar
+    windows, row c the `width` samples from sample c * stride of `raw`,
+    each word converted as its format says (`io.sources.WIRE_FORMATS`)
+    where the row's position lies in [valid[c, 0], valid[c, 1]), 0.0
+    elsewhere."""
+    rows = _raw_rows(raw, valid, width, stride)
+    offset, scale = _BY_DTYPE[raw.dtype]
+    x = raw.as_strided((rows, width, 2), (2 * stride, 2, 1))
+    if raw.dtype != torch.float32:
+        x = x.to(torch.float32)
+        if offset:
+            x = x - offset
+        x = x * torch.tensor(scale, dtype=torch.float32)
+    pos = torch.arange(width, device=raw.device)
+    keep = (pos >= valid[:, :1]) & (pos < valid[:, 1:])
+    x = torch.where(keep[:, :, None], x, 0.0)
+    return x.permute(0, 2, 1).contiguous()
+
+
+def raw_to_planar(raw: torch.Tensor, valid: torch.Tensor, width: int,
+                  stride: int) -> torch.Tensor:
+    """(rows, 2, width) f32 planar windows of a raw batch buffer, on its
+    device: kernel R1 for CUDA tensors (raw 16-byte aligned, width and
+    stride multiples of 8: `raw_geometry` gives multiples of 128), the
+    plain version on the CPU."""
+    if raw.device.type == "cpu":
+        with kernel_range("R1 raw_planar"):
+            return raw_planar_plain(raw, valid, width, stride)
+    if raw.device.type != "cuda":
+        raise ValueError(f"unsupported device {raw.device}")
+    rows = _raw_rows(raw, valid, width, stride)
+    if raw.data_ptr() % 16 or width % 8 or stride % 8:
+        raise ValueError("R1 needs a 16-byte aligned buffer and a width and "
+                         "stride that are multiples of 8")
+    from ..kernels import _ext
+    out = torch.empty((rows, 2, width), dtype=torch.float32,
+                      device=raw.device)
+    offset, scale = _BY_DTYPE[raw.dtype]
+    with torch.cuda.device(raw.device), kernel_range("R1 raw_planar"):
+        rc = _ext.lib("raw_planar").raw_planar_launch(
+            raw.data_ptr(), valid.data_ptr(), out.data_ptr(),
+            _R1_CODES[raw.dtype], rows, stride, width, offset, scale,
+            torch.cuda.current_stream(raw.device).cuda_stream)
+    _ext.check(rc, "raw_planar")
+    LAUNCHES["raw_planar"] += 1
+    return out

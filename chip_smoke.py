@@ -1487,26 +1487,50 @@ def _same_front(x, cfg, p, q, dev, what):
     return n_diff, n
 
 
-def _batches(it, n):
-    while True:
-        chunk = list(itertools.islice(it, n))
-        if not chunk:
-            return
-        yield chunk
+def _raw_batches(path, geometry, batch, max_blocks=None, pinned=False):
+    """A complex64 capture as the fused runner reads it, per batch: (raw
+    words, valid ranges, planar f32 windows from R1's plain version),
+    rows past the last window zeros; pinned when asked."""
+    import torch
+    from airmodes_torch.io import stream as S
+    from airmodes_torch.resample import fused as RF
+    width, block = sum(geometry), geometry[1]
+
+    def one(acc):
+        valid = torch.zeros((batch, 2), dtype=torch.int32)
+        valid[:len(acc)] = torch.tensor([r for _, _, r in acc])
+        raw = acc[0][0]
+        x = RF.raw_planar_plain(raw, valid, width, block)
+        if pinned:
+            raw, valid, x = raw.pin_memory(), valid.pin_memory(), \
+                x.pin_memory()
+        return raw, valid, x
+
+    acc = []
+    for item in S._raw_windows(S._RawReader(path, "complex64", 0, geometry),
+                                batch, max_blocks, False):
+        acc.append(item)
+        if len(acc) == batch:
+            yield one(acc)
+            acc = []
+    if acc:
+        yield one(acc)
 
 
 def phase_resampled(cfg, dev, tmp, smi):
     """The resampled front end on the card, at DspConfig() from a 10 Msps
     capture of 32 blocks (p/q = 1/5), then at C = 4 from 6 Msps captures
     to 4 Msps (p/q = 2/3); then the host path (streaming resampler ->
-    run_pipelined) over 8 blocks. Returns the fused runs' launch counts
-    and the 10 Msps capture's path."""
+    run_pipelined) over 8 blocks. Returns the fused runs' launch counts,
+    R1's (ms, plain ms, bound ms, bound by) per wire format and the 10
+    Msps capture's path."""
     import numpy as np
     import torch
     from airmodes_torch.config import DspConfig
     from airmodes_torch.dsp.host import BlockStats
     from airmodes_torch.io import sources, stream as S
     from airmodes_torch.kernels import preamble as K
+    from airmodes_torch.kernels.opcount import bound
     from airmodes_torch.resample import fused as RF
     from airmodes_torch.resample import polyphase as PP
     from airmodes_torch.resample.polyphase import (rational_rate,
@@ -1530,15 +1554,48 @@ def phase_resampled(cfg, dev, tmp, smi):
     n_diff = n_all = 0
     first = None
     pinned = torch.device(dev).type == "cuda"
-    for k, acc in enumerate(_batches(S._raw_windows(
-            path, cfg, "complex64", 0, geometry, None), BATCH)):
-        x = S._stack_planar([w for w, _ in acc], pinned)
-        first = x if first is None else first
+    for k, (raw, valid, x) in enumerate(_raw_batches(path, geometry, BATCH,
+                                                     pinned=pinned)):
+        first = (raw, valid, x) if first is None else first
         d, n = _same_front(x, cfg, p, q, dev, f"resampled batch {k}")
         n_diff, n_all = n_diff + d, n_all + n
     print(f"resampled: front half, every batch: AGC gains card == CPU "
           f"(rtol 1e-6); int8 {n_diff} of {n_all} samples differ by 1 "
           f"({n_diff / n_all:.2e}), none by more", flush=True)
+
+    # R1 alone at the fused cell's shapes: the first batch's words in each
+    # wire format (complex64 as read; sc16 and uc8 written from them) on
+    # the card against the plain version bit for bit; its time, the plain
+    # version's on the card and its bytes bound
+    raw0, valid0, first = first
+    width, stride = sum(geometry), geometry[1]
+    r1 = {}
+    for fmt, words in (("sc16", torch.clamp(torch.round(raw0 * 32768.0),
+                                            -32768, 32767).to(torch.int16)),
+                       ("uc8", torch.clamp(torch.round(raw0 * 127.5 + 127.5),
+                                           0, 255).to(torch.uint8)),
+                       ("complex64", raw0)):
+        rawd, validd = words.to(dev), valid0.to(dev)
+        want = RF.raw_planar_plain(words, valid0, width, stride)
+        K.reset_launches()
+        got = RF.raw_to_planar(rawd, validd, width, stride)
+        if K.LAUNCHES["raw_planar"] != 1 or not torch.equal(
+                got.cpu().view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"resampled: R1 on {fmt} words on the "
+                                 f"card != its plain version, or not one "
+                                 f"launch")
+        ms = time_ms(lambda: RF.raw_to_planar(rawd, validd, width, stride))
+        plain_ms = time_ms(lambda: RF.raw_planar_plain(rawd, validd, width,
+                                                       stride))
+        n_bytes = want.shape[0] * width * (words.element_size() * 2 + 8)
+        bms, by = bound(n_bytes, 0)
+        r1[fmt] = (ms, plain_ms, bms, by)
+        print(f"resampled: R1 raw_planar ({fmt} words, {want.shape[0]} "
+              f"windows of {width}) == plain bit for bit; {ms:.5f} ms on "
+              f"the card, plain version {plain_ms:.5f} ms on the card, "
+              f"{n_bytes / 1e6:.1f} MB, bound {bms:.5f} ms ({by}), share "
+              f"{bms / ms:.3f} [{smi}]", flush=True)
+        del rawd, validd, got, want
 
     xd = torch.empty(first.shape, dtype=torch.float32, device=dev)
     copy_ms = time_ms(lambda: xd.copy_(first, non_blocking=True),
@@ -1577,6 +1634,10 @@ def phase_resampled(cfg, dev, tmp, smi):
         if launches[kname] <= 0:
             raise AssertionError(f"resampled: kernel {kname} never "
                                  f"launched")
+    if launches["raw_planar"] != -(-len(blocks) // BATCH):
+        raise AssertionError(f"resampled: R1 launched "
+                             f"{launches['raw_planar']} times over "
+                             f"{len(blocks)} blocks")
     t1 = time.perf_counter()
     on_cpu = list(S.run_resampled_fused(
         path, cfg, dtype="complex64", rate_in=RESAMPLED_RATE, batch=BATCH,
@@ -1669,9 +1730,7 @@ def phase_resampled(cfg, dev, tmp, smi):
         truths.append(write_raw_capture(cfg4, paths[-1], n, 6e6, 31 + c))
     p4, q4 = rational_rate(6e6, cfg4.channel_rate)
     geom4 = RF.raw_geometry(cfg4, p4, q4)[:3]
-    x = S._stack_planar([next(iter(S._raw_windows(
-        pth, cfg4, "complex64", 0, geom4, 1)))[0] for pth in paths],
-        pinned)
+    x = torch.cat([next(_raw_batches(pth, geom4, 1, 1))[2] for pth in paths])
     _same_front(x, cfg4, p4, q4, dev, "resampled channels, step 0")
     RF.resample_demod_packed_planar_jit(x, None, cfg4, p4, q4, device=dev)
     stats = BlockStats()
@@ -1688,6 +1747,9 @@ def phase_resampled(cfg, dev, tmp, smi):
         if chan[kname] <= 0:
             raise AssertionError(f"resampled channels: kernel {kname} "
                                  f"never launched")
+    if chan["raw_planar"] != max(RS_CHANNEL_BLOCKS):
+        raise AssertionError(f"resampled channels: R1 launched "
+                             f"{chan['raw_planar']} times")
     if [[m is None for m in st] for st in steps] != [
             [k >= n for n in RS_CHANNEL_BLOCKS]
             for k in range(max(RS_CHANNEL_BLOCKS))]:
@@ -1712,7 +1774,7 @@ def phase_resampled(cfg, dev, tmp, smi):
           f"== CPU, ended channels None; launches {chan}; {stats}; end to "
           f"end {samples / wall / 1e6:.1f} Msps at 4 Msps out ({wall:.3f} s)"
           f" [{smi}]", flush=True)
-    return launches, chan, path
+    return launches, chan, r1, path
 
 
 class _FixedClock:
@@ -3412,10 +3474,9 @@ def phase_graphs(cfg, dev, tmp, smi):
 
     p, q = rational_rate(RESAMPLED_RATE, cfg.channel_rate)
     geometry = RF.raw_geometry(cfg, p, q)[:3]
-    wins = _batches(S._raw_windows(os.path.join(tmp, "resampled.c64"), cfg,
-                                   "complex64", 0, geometry, 2 * BATCH),
-                    BATCH)
-    x0, x1 = (S._stack_planar([w for w, _ in acc], True) for acc in wins)
+    (_, _, x0), (_, _, x1) = _raw_batches(
+        os.path.join(tmp, "resampled.c64"), geometry, BATCH, 2 * BATCH,
+        pinned=True)
 
     def fused_vs_cpu(card, cpu):
         np.testing.assert_allclose(card[1].numpy(), cpu[1].numpy(),
@@ -4014,7 +4075,7 @@ def main() -> int:
                                truth, tmp, smi)
         phase_c1(dev, tmp, smi)
         chan_launches = phase_channels(cfg, dev, tmp, smi)
-        rs_launches, rs_chan_launches, rs_path = phase_resampled(
+        rs_launches, rs_chan_launches, r1_t, rs_path = phase_resampled(
             cfg, dev, tmp, smi)
         phase_cli(cfg, dev, tmp, smi, os.path.join(tmp, "main.uc8"),
                   rs_path, [os.path.join(tmp, "ch0.uc8"),
@@ -4103,6 +4164,19 @@ def main() -> int:
              "launches": b6_launches[C], "max_abs_err": b6_err, "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
              "library_ms": None})
+    # R1 on each wire format at the fused cell's shapes; it runs on the
+    # fused paths alone, one launch a step
+    for fmt, (ms, plain_ms, bms, by) in r1_t.items():
+        kernels.append(
+            {"name": f"raw_planar (R1, {fmt})", "route": "cuda",
+             "source": "airmodes_torch/kernels/csrc/raw_planar.cu",
+             "replaces": None, "launches": rs_launches["raw_planar"],
+             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bms, "bound_by": by, "library_ms": None,
+             "launches_by_path": {
+                 "run_resampled_fused": rs_launches["raw_planar"],
+                 "run_resampled_fused_channels":
+                     rs_chan_launches["raw_planar"]}})
     kernels += probe_rows
     ms, plain_ms, n_bytes, samples = b6_t10[BATCH]
     half10 = cfg10.nms_chips * cfg10.sps

@@ -857,6 +857,71 @@ def test_run_resampled_fused_channels_matches_reference(tmp_path):
     assert stats.emitted == sum(len(m or []) for st in steps for m in st)
 
 
+def _write_wire(tmp_path, name, iq, fmt):
+    """A capture in a file format's words (sc16: int16 pairs, uc8: uint8
+    pairs offset by 127.5), at 0.9 of its full scale."""
+    x = iq / float(np.max(np.abs(iq))) * 0.9
+    if fmt == "sc16":
+        w = np.round(np.stack([x.real, x.imag], -1) * 32767).astype(np.int16)
+    else:
+        w = np.round(np.stack([x.real, x.imag], -1) * 127.5
+                     + 127.5).astype(np.uint8)
+    path = str(tmp_path / name)
+    w.tofile(path)
+    return path
+
+
+@pytest.mark.parametrize("fmt", ["sc16", "uc8"])
+def test_run_resampled_fused_wire_formats_match_reference(tmp_path, fmt):
+    """sc16 and uc8 captures through the fused runner (their words sent
+    as read, converted by R1's plain version) against the reference's
+    runner, which converts on the host: three windows at batch 2 (a
+    partial last batch), then max_blocks, then a resume point that snaps
+    down to a multiple of p."""
+    from airmodes.io.stream import run_resampled_fused as jax_run
+    from airmodes_torch.io.stream import run_resampled_fused
+    iq_raw, truth = _raw_capture(3, snr_db=18.0, n_msgs=9, seed=17)
+    path = _write_wire(tmp_path, f"cap3.{fmt}", iq_raw, fmt)
+    cases = [dict(batch=2), dict(batch=2, max_blocks=2),
+             dict(start_sample=CFG.block_size + 1)]
+    runs = []
+    for kw in cases:
+        kw.update(dtype=fmt, rate_in=6e6)
+        got = list(run_resampled_fused(path, CFG, device="cpu", **kw))
+        want = list(jax_run(path, JCFG, **kw))
+        assert len(got) == len(want), kw
+        _same_messages(_flat(got), _flat(want))
+        runs.append(got)
+    assert [len(r) for r in runs] == [3, 2, 2]
+    assert len({t.hex for t in truth} - {m.split()[1]
+                                          for m in _flat(runs[0])}) <= 1
+
+
+@pytest.mark.parametrize("fmt", ["sc16", "uc8"])
+def test_run_resampled_fused_channels_wire_formats_match_reference(tmp_path,
+                                                                   fmt):
+    """Two sc16 or uc8 captures of 1 and 2 windows through the channels
+    runner: the shorter channel ends first and yields None; the same
+    messages as the reference's runner."""
+    from airmodes.io.stream import run_resampled_fused_channels as jax_run
+    from airmodes_torch.io.stream import run_resampled_fused_channels
+    paths = []
+    for c, n_win in enumerate((1, 2)):
+        iq_raw, _ = _raw_capture(n_win, snr_db=20.0, n_msgs=3 * n_win,
+                                 seed=23 + c)
+        paths.append(_write_wire(tmp_path, f"ch{c}.{fmt}", iq_raw, fmt))
+    steps = list(run_resampled_fused_channels(paths, CFG, dtype=fmt,
+                                              rate_in=6e6, device="cpu"))
+    want = list(jax_run(paths, JCFG, dtype=fmt, rate_in=6e6))
+    assert len(steps) == len(want) == 2
+    assert steps[1][0] is None and steps[1][1] is not None
+    for a, b in zip(steps, want):
+        for ca, cb in zip(a, b):
+            assert (ca is None) == (cb is None)
+            _same_messages(ca or [], cb or [])
+    assert sum(len(m or []) for st in steps for m in st) > 0
+
+
 def test_host_path_matches_fused_path(capture3):
     """The two resampled routes of the CLI, on the same capture: the host
     path (streaming resampler -> framed blocks -> run_pipelined with int8
