@@ -24,10 +24,11 @@ call per time step down the channel axis):
 Under a profiler each stage is a span (`utils.profiling.span`):
 `airmodes.frame` per block framed (on the thread that frames), with
 `airmodes.source_wait` inside it while the source has no block ready;
-`airmodes.dispatch` per step on the dispatch thread; on the caller's
-thread `airmodes.result_wait` on the dispatch queue, `airmodes.fetch` per
-`.cpu()` and `airmodes.decode` per block, each closed before the caller
-gets the messages.
+`airmodes.dispatch` per step on the dispatch thread, with
+`airmodes.full_block` inside it around a step outside the planar gate; on
+the caller's thread `airmodes.result_wait` on the dispatch queue,
+`airmodes.fetch` per `.cpu()` and `airmodes.decode` per block, each closed
+before the caller gets the messages.
 
 Host buffers are allocated per batch, as the reference does; page-locked
 ones come from PyTorch's caching host allocator, which does not hand a
@@ -85,16 +86,20 @@ def _planar_step(cfg: DspConfig, device):
     """(step(xi, xq) -> packed (B, K+1, 9) on the device, planar length P).
     Inside the planar gate: the planar path (kernels B1 and B2). Outside
     it: rows of T = L+N+R samples rounded up to whole 128-sample lines,
-    through the full-block path, as the reference's fallback does. Both
-    are compiled steps (captured graphs on a card)."""
+    through the full-block path, as the reference's fallback does, one
+    span `airmodes.full_block` a step. Both are compiled steps (captured
+    graphs on a card)."""
     dev = resolve_device(device)
     if supported_planar_tile(cfg) is not None:
         return (lambda xi, xq: demod_batch_packed_planar_jit(xi, xq, cfg,
                                                              device=dev),
                 planar_length(cfg))
     T = cfg.left_halo + cfg.block_size + cfg.right_halo
-    return (lambda xi, xq: _full_block_rows(xi, xq, cfg, device=dev),
-            -(-T // 128) * 128)
+
+    def step(xi, xq):
+        with span("airmodes.full_block"):
+            return _full_block_rows(xi, xq, cfg, device=dev)
+    return step, -(-T // 128) * 128
 
 
 class _PlanarSource:

@@ -1105,13 +1105,14 @@ def _run_batches(batches, step, cfg, what, rtol):
     return msgs
 
 
-def planar_batches(cfg, path):
+def planar_batches(cfg, path, p=None):
     """A uc8 capture framed by the int8 runner's AGC framer into batches of
-    BATCH: [((planar I, Q) numpy, starts, full scales)]."""
+    BATCH rows of p samples (the planar layout's length by default):
+    [((planar I, Q) numpy, starts, full scales)]."""
     import numpy as np
     from airmodes_torch.io.native_stream import _PlanarSource
     from airmodes_torch.kernels import preamble as K
-    p = K.planar_length(cfg)
+    p = p or K.planar_length(cfg)
     src = _PlanarSource(cfg, p, path=path, fmt="uc8")
     batches = []
     try:
@@ -1320,25 +1321,39 @@ def phase_reports(msgs, truth, tmp):
 def phase_c1(dev, tmp, smi):
     """A config outside the planar gate through the int8 runner: at 20 Msps
     (sps 10) `run_native_pipelined` takes the full-block path on the
-    stacked int8 rows, on the card, with no hand kernel."""
+    stacked int8 rows, on the card, with no hand kernel, one replay of
+    `_full_block_rows`'s graph a step. Then one batch through the step
+    graphed and eagerly (bit for bit), and a short profile of the step:
+    the replay's range inside the span `airmodes.full_block`."""
     import torch
     from airmodes_torch.config import DspConfig
-    from airmodes_torch.io.native_stream import run_native_pipelined
+    from airmodes_torch.io.native_stream import (_full_block_rows,
+                                                 _planar_step,
+                                                 run_native_pipelined)
     from airmodes_torch.kernels import preamble as K
+    from airmodes_torch.utils import graphs
     cfg20 = DspConfig(channel_rate=20e6)
     if K.supported_planar_tile(cfg20) is not None:
         raise AssertionError("C1: 20 Msps is inside the planar gate")
     path = os.path.join(tmp, "c1.uc8")
     truth = write_capture(cfg20, path, BATCH, seed=5)
     K.reset_launches()
+    replays = _full_block_rows.replays
     t0 = time.perf_counter()
-    msgs = _messages(run_native_pipelined(cfg20, path=path, fmt="uc8",
-                                          batch=BATCH, device=dev))
+    blocks = list(run_native_pipelined(cfg20, path=path, fmt="uc8",
+                                       batch=BATCH, device=dev))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    msgs = _messages(blocks)
     hand = {**K.LAUNCHES, **K.DETECT_CANDS_ROUTES, **K.DETECT_MASK_ROUTES}
     if any(hand.values()):
         raise AssertionError(f"C1: the full-block route launched {hand}")
+    steps = -(-len(blocks) // BATCH)
+    replayed = _full_block_rows.replays - replays
+    if replayed != steps:
+        raise AssertionError(f"C1: {len(blocks)} blocks in {steps} steps "
+                             f"of {BATCH} rows, but {replayed} graph "
+                             f"replays")
     t1 = time.perf_counter()
     on_cpu = _messages(run_native_pipelined(cfg20, path=path, fmt="uc8",
                                             batch=BATCH, device="cpu"))
@@ -1348,10 +1363,34 @@ def phase_c1(dev, tmp, smi):
                              f"{len(on_cpu)} messages; e.g. {diff})")
     print(f"C1: run_native_pipelined at 20 Msps, {BATCH} blocks: "
           f"{len(msgs)} messages == CPU ({time.perf_counter() - t1:.1f} s "
-          f"on the CPU), no hand kernel launched; end to end "
+          f"on the CPU), no hand kernel launched; {replayed} replays of "
+          f"the graph; end to end "
           f"{BATCH * cfg20.block_size / wall / 1e6:.1f} Msps ({wall:.3f} s) "
           f"[{smi}]", flush=True)
     _decode_check(msgs, truth, "C1")
+
+    step, width = _planar_step(cfg20, dev)
+    (xi, xq), _, _ = planar_batches(cfg20, path, width)[0]
+    xi = torch.from_numpy(xi).pin_memory()
+    xq = torch.from_numpy(xq).pin_memory()
+    graphed = step(xi, xq).cpu()
+    with graphs.disable():
+        eager = step(xi, xq).cpu()
+    if not torch.equal(graphed, eager):
+        bad = int((graphed != eager).sum())
+        raise AssertionError(f"C1: the graph's tables != the eager step's "
+                             f"({bad} words differ)")
+    counts, wall_us = profile_window(lambda: step(xi, xq), 3)
+    ranges = counts["ranges"]
+    if ranges.get("airmodes.full_block") != 3 or \
+            ranges.get("graph _full_block_rows") != 3:
+        raise AssertionError(f"C1: profile of 3 steps: ranges {ranges}")
+    print(f"C1: the graph's tables == the eager step's, bit for bit; a "
+          f"profile of 3 steps: 3 spans airmodes.full_block, each around "
+          f"its replay (graph _full_block_rows), "
+          f"{counts['device_events']} device events, card busy "
+          f"{counts['busy_us'] / 3:.1f} us, host wall {wall_us / 3:.1f} us "
+          f"a step [{smi}]", flush=True)
 
 
 CHANNEL_BLOCKS = (8, 8, 6, 3)

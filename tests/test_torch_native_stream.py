@@ -37,19 +37,32 @@ def _write_uc8(path, iq):
     return path
 
 
-def _uc8_capture(path, n_frames, seed, total, rate=2e6, spacing=3700):
+def _write_sc16(path, iq):
+    """Interleaved int16 I/Q at 0.9 of full scale, as a USRP writes sc16."""
+    peak = float(np.max(np.abs(iq))) or 1.0
+    x = iq / peak * 0.9
+    s = np.empty(2 * len(x), np.int16)
+    s[0::2] = np.round(x.real * 32767).astype(np.int16)
+    s[1::2] = np.round(x.imag * 32767).astype(np.int16)
+    s.tofile(path)
+    return path
+
+
+def _write_capture(path, n_frames, seed, total, rate=2e6, spacing=3700,
+                   fmt="uc8"):
     frames = encoder.random_mixed_frames(n_frames, seed=seed)
     iq, truth = encoder.make_capture(frames, rate=rate, snr_db=20.0,
                                      spacing=spacing, seed=seed,
                                      total_samples=total)
-    return _write_uc8(path, iq), truth
+    write = _write_sc16 if fmt == "sc16" else _write_uc8
+    return write(path, iq), truth
 
 
 @pytest.fixture(scope="module")
 def capture(tmp_path_factory, native_ok):
     """A uc8 capture of mixed traffic over 3+ blocks, and its truth."""
-    return _uc8_capture(str(tmp_path_factory.mktemp("cap") / "cap.uc8"), 14,
-                        31, 3 * (1 << 14) + 5000)
+    return _write_capture(str(tmp_path_factory.mktemp("cap") / "cap.uc8"),
+                          14, 31, 3 * (1 << 14) + 5000)
 
 
 def _cfgs(**kw):
@@ -108,26 +121,29 @@ def test_runner_needs_a_card_by_default(capture):
 
 # --- C1: configs outside the planar gate take the full-block path -----------
 
-@pytest.mark.parametrize("kw,rate,spacing", [
-    (dict(channel_rate=20e6, block_size=1 << 15), 20e6, 6000),
-    (dict(noise_window=256, block_size=1 << 14), 2e6, 3700),
-    (dict(block_size=5 * 1024), 2e6, 1700),
-], ids=["sps10", "noise_window256", "block5x1024"])
+@pytest.mark.parametrize("kw,rate,spacing,fmt", [
+    (dict(channel_rate=20e6, block_size=1 << 15), 20e6, 6000, "uc8"),
+    (dict(noise_window=256, block_size=1 << 14), 2e6, 3700, "uc8"),
+    (dict(block_size=5 * 1024), 2e6, 1700, "uc8"),
+    (dict(channel_rate=20e6, block_size=1 << 15), 20e6, 6000, "sc16"),
+], ids=["sps10", "noise_window256", "block5x1024", "sps10_sc16"])
 def test_runner_outside_planar_gate_matches_reference(tmp_path, native_ok,
-                                                       kw, rate, spacing):
+                                                       kw, rate, spacing,
+                                                       fmt):
     """A config that the planar gate refuses runs through the full-block
     path on the stacked int8 rows, as the reference's runner does: the
-    same messages, string for string, in the same order."""
+    same messages, string for string, in the same order. At 20 Msps from
+    rtl-sdr uc8 and from USRP sc16 samples."""
     from airmodes.io.native_stream import run_native_pipelined as jax_run
     from airmodes_torch.io.native_stream import run_native_pipelined
     from airmodes_torch.kernels.preamble import supported_planar_tile
     jc, tc = _cfgs(max_detections=32, **kw)
     assert supported_planar_tile(tc) is None
-    path, truth = _uc8_capture(str(tmp_path / "c.uc8"), 12, 41,
-                               3 * tc.block_size + 5000, rate=rate,
-                               spacing=spacing)
-    want = _flat(jax_run(jc, path=path, fmt="uc8", batch=2))
-    got = _flat(run_native_pipelined(tc, path=path, fmt="uc8", batch=2,
+    path, truth = _write_capture(str(tmp_path / f"c.{fmt}"), 12, 41,
+                                 3 * tc.block_size + 5000, rate=rate,
+                                 spacing=spacing, fmt=fmt)
+    want = _flat(jax_run(jc, path=path, fmt=fmt, batch=2))
+    got = _flat(run_native_pipelined(tc, path=path, fmt=fmt, batch=2,
                                      device="cpu"))
     assert got == want
     assert {t.hex for t in truth} <= {m.split()[1] for m in got}
@@ -253,8 +269,8 @@ def channel_captures(tmp_path_factory, native_ok):
     n = 1 << 14
     out = []
     for c, nblk in enumerate((4, 3, 2)):
-        out.append(_uc8_capture(str(d / f"ch{c}.uc8"), 4 * nblk, 50 + c,
-                                nblk * n + 3000))
+        out.append(_write_capture(str(d / f"ch{c}.uc8"), 4 * nblk, 50 + c,
+                                  nblk * n + 3000))
     rng = np.random.default_rng(9)
     m = 3 * n + 3000
     iq = ((rng.standard_normal(m) + 1j * rng.standard_normal(m)) * 0.05
@@ -312,9 +328,9 @@ def test_run_native_channels_outside_planar_gate(channel_captures, tmp_path):
     from airmodes.io.native_stream import run_native_channels as jax_run
     from airmodes_torch.io.native_stream import run_native_channels
     jc, tc = _cfgs(channel_rate=20e6, block_size=1 << 15, max_detections=32)
-    paths = [_uc8_capture(str(tmp_path / f"f{c}.uc8"), 8, 60 + c,
-                          (2 + c) * tc.block_size, rate=20e6,
-                          spacing=6000)[0] for c in range(2)]
+    paths = [_write_capture(str(tmp_path / f"f{c}.uc8"), 8, 60 + c,
+                            (2 + c) * tc.block_size, rate=20e6,
+                            spacing=6000)[0] for c in range(2)]
     want = list(jax_run(paths, jc, fmt="uc8"))
     got = list(run_native_channels(paths, tc, fmt="uc8", device="cpu"))
     assert got == want
@@ -385,6 +401,113 @@ def test_iqstream_reads_match_reference(native_ok):
     wi, wq = jax_native.quantize_planar_i8(iq, 100.0)
     assert np.array_equal(gi, wi) and np.array_equal(gq, wq)
     assert np.array_equal(gi, quantize_i8_np(iq.real, 100.0))
+
+
+def _planar_row(st, agc: bool):
+    """The stream's next block framed as planar int8 rows: with AGC
+    (start, gain, I, Q), else with the fixed gain 90 (start, I, Q); None at
+    its end. Rows are longer than the frame, filled beforehand."""
+    P = st.total + 100
+    xi, xq = np.full(P, 7, np.int8), np.full(P, 7, np.int8)
+    nxt = (st.next_block_planar_agc(xi, xq) if agc
+           else st.next_block_planar_i8(xi, xq, scale=90.0))
+    if nxt is None:
+        return None
+    return (*(nxt if agc else (nxt,)), xi, xq)
+
+
+def _planar_rows(st, agc: bool):
+    """Every block the stream holds until its end (its source set)."""
+    rows = []
+    while (row := _planar_row(st, agc)) is not None:
+        rows.append(row)
+    return rows
+
+
+def _same_rows(got, want):
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        assert len(a) == len(b)
+        for u, v in zip(a, b):
+            if isinstance(u, np.ndarray):
+                assert np.array_equal(u, v)
+            else:
+                assert u == v
+
+
+@pytest.mark.parametrize("agc", [True, False], ids=["agc", "fixed_gain"])
+def test_iqstream_planar_rows_match_reference_at_edges(native_ok, agc):
+    """The planar framers read the ring where it lies, frames wrapping it,
+    and quantize without branches: the same rows, starts and gains as the
+    reference's framer on NaN, +-inf, floats past the peak's limit, -0,
+    subnormals, exact halves after the gain, and values past +-127."""
+    from airmodes import native as jax_native
+    from airmodes_torch import native
+    bs = 1 << 14
+    rng = np.random.default_rng(21)
+    iq = ((rng.standard_normal(5 * bs + 321)
+           + 1j * rng.standard_normal(5 * bs + 321)) * 0.2).astype(np.complex64)
+    x = iq.view(np.float32)
+    # block 1: the peak 0.9375 gives the AGC gain 128, and k/256 lands on
+    # the half k/2 (the fixed gain 90 puts other values on halves)
+    x[2 * bs: 4 * bs] = rng.integers(-240, 241, 2 * bs) / 256.0
+    x[2 * bs + 5] = 0.9375
+    x[3 * bs: 3 * bs + 8] = np.float32(1.5) / np.float32(90.0) * np.arange(
+        -4, 4, dtype=np.float32)
+    # block 3: values the peak skips or clamps
+    special = np.array([np.nan, np.inf, -np.inf, 3.401e38, -3.401e38, -0.0,
+                        1e-45, -1e-45, 5.0, -5.0], np.float32)
+    x[6 * bs + 40: 6 * bs + 40 + len(special)] = special
+    kw = dict(block_size=bs, max_detections=16)
+    cfg = DspConfig(**kw)
+    ring = cfg.block_size + cfg.right_halo          # frames wrap the ring
+    streams = [native.IQStream(cfg, ring_samples=ring),
+               jax_native.IQStream(JaxCfg(**kw), ring_samples=ring)]
+    try:
+        rows = []
+        for st in streams:
+            # push what the ring takes, framing whole blocks as they fill
+            got, pos = [], 0
+            while pos < len(iq):
+                pos += st.push(iq[pos:])
+                while st.available >= st.block + st.right:
+                    got.append(_planar_row(st, agc))
+            st.set_eof()
+            rows.append(got + _planar_rows(st, agc))
+    finally:
+        for st in streams:
+            st.close()
+    _same_rows(*rows)
+    assert len(rows[0]) == 6
+
+
+@pytest.mark.parametrize("fmt", ["sc16", "uc8"])
+def test_iqstream_file_pump_matches_reference(tmp_path, native_ok, fmt):
+    """The file pump converts the wire format straight into the ring, in
+    as many pieces as the ring's free space allows (a ring smaller than
+    one read): the same AGC rows, starts and gains as the reference's."""
+    from airmodes import native as jax_native
+    from airmodes_torch import native
+    rng = np.random.default_rng(22)
+    n = 4 * (1 << 14) + 777
+    path = str(tmp_path / f"cap.{fmt}")
+    if fmt == "sc16":
+        rng.integers(-32768, 32768, 2 * n).astype(np.int16).tofile(path)
+    else:
+        rng.integers(0, 256, 2 * n).astype(np.uint8).tofile(path)
+    kw = dict(block_size=1 << 14, max_detections=16)
+    cfg = DspConfig(**kw)
+    ring = cfg.block_size + cfg.right_halo
+    rows = []
+    for st in (native.IQStream(cfg, ring_samples=ring),
+               jax_native.IQStream(JaxCfg(**kw), ring_samples=ring)):
+        try:
+            st.start_file(path, fmt=fmt)
+            rows.append(_planar_rows(st, agc=True))
+        finally:
+            st.close()
+    _same_rows(*rows)
+    assert len(rows[0]) == 5
 
 
 def test_iqstream_next_block_into_a_buffer(native_ok):
