@@ -20,7 +20,6 @@
 #include <cstdio>
 #include <cerrno>
 #include <cstring>
-#include <cmath>
 #include <thread>
 
 #include <arpa/inet.h>
@@ -67,18 +66,13 @@ inline uint64_t ring_avail(const Ring& r) {
          r.tail.load(std::memory_order_acquire);
 }
 
-// Copy n samples into the ring at head (caller checked free space).
-void ring_write(Ring& r, const float* src, uint64_t n) {
-  uint64_t h = r.head.load(std::memory_order_relaxed);
-  uint64_t idx = h & r.mask();
-  uint64_t first = std::min(n, r.capacity - idx);
-  std::memcpy(r.data + 2 * idx, src, first * 2 * sizeof(float));
-  if (n > first)
-    std::memcpy(r.data, src + 2 * first, (n - first) * 2 * sizeof(float));
-  r.head.store(h + n, std::memory_order_release);
-}
-
 // --- SDR wire-format converters (hot loops, auto-vectorized) ---------------
+
+// Wire formats: 0 = f32 pairs, 1 = sc16, 2 = uc8; bytes per sample.
+constexpr int kF32 = 0, kSc16 = 1, kUc8 = 2;
+inline uint64_t wire_bytes(int format) {
+  return format == kF32 ? 8 : (format == kSc16 ? 4 : 2);
+}
 
 void convert_uc8(const uint8_t* in, float* out, uint64_t n_samples) {
   constexpr float k = 1.0f / 127.5f;
@@ -92,17 +86,51 @@ void convert_sc16(const int16_t* in, float* out, uint64_t n_samples) {
     out[i] = static_cast<float>(in[i]) * k;
 }
 
+// n samples of the wire format -> f32 pairs at out
+void convert_wire(int format, const uint8_t* in, float* out, uint64_t n) {
+  if (format == kSc16)
+    convert_sc16(reinterpret_cast<const int16_t*>(in), out, n);
+  else if (format == kUc8)
+    convert_uc8(in, out, n);
+  else
+    std::memcpy(out, in, n * 2 * sizeof(float));
+}
+
+// Write n samples of the wire format into the ring at head, converted where
+// they land: two spans where the ring wraps, head published after the
+// samples (caller checked free space).
+void ring_write(Ring& r, const uint8_t* src, int format, uint64_t n) {
+  uint64_t h = r.head.load(std::memory_order_relaxed);
+  uint64_t idx = h & r.mask();
+  uint64_t first = std::min(n, r.capacity - idx);
+  convert_wire(format, src, r.data + 2 * idx, first);
+  if (n > first)
+    convert_wire(format, src + first * wire_bytes(format), r.data,
+                 n - first);
+  r.head.store(h + n, std::memory_order_release);
+}
+
 // THE int8 quantization rule, ONE helper for every native quantize loop
-// (mirrors dsp/host.py quantize_i8_np: clamp to +-127, half-to-even
-// nearbyintf = np.round; four hand-copied bodies used to carry this —
-// a drifting copy breaks the cross-path dBFS/bit-exactness contract)
+// (mirrors dsp/host.py quantize_i8_np: clamp to +-127, round half to even
+// = np.round; four hand-copied bodies used to carry this — a drifting
+// copy breaks the cross-path dBFS/bit-exactness contract). Branch-free so
+// that the loops calling it vectorize: +/-inf saturates, NaN quantizes to
+// 0 (a noise sample; every compare with NaN is false, so the clamps keep
+// it and the last select drops it). Adding 1.5 * 2^23 puts the clamped
+// value in the binade whose unit in the last place is 1: the add rounds
+// it half to even, exactly, and the low mantissa bits hold the result.
+// The clamps stand between the caller's product and the add, so no FMA
+// can fuse them.
 inline int8_t quant_i8(float v) {
-  // NaN-safe clamp: comparisons with NaN are all false, so the old
-  // ternary form passed NaN through to an undefined int8 cast.
-  // NaN quantizes to 0 (a noise sample), +/-inf saturates.
-  if (!(v >= -127.f)) return v < 0.f ? -127 : 0;
-  if (v > 127.f) return 127;
-  return static_cast<int8_t>(std::nearbyintf(v));
+  constexpr float kRound = 12582912.f;        // 1.5 * 2^23, bits 0x4b400000
+  constexpr int32_t kRoundBits = 0x4b400000;
+  v = v > 127.f ? 127.f : v;
+  v = v < -127.f ? -127.f : v;
+  v = v == v ? v : 0.f;
+  float r = v + kRound;
+  int32_t b;
+  std::memcpy(&b, &r, sizeof b);
+  return static_cast<int8_t>(b - kRoundBits);
 }
 
 // f32 pairs -> int8 pairs (quantized device transfer format)
@@ -112,17 +140,119 @@ void quantize_i8(const float* in, int8_t* out, uint64_t n_samples,
     out[i] = quant_i8(in[i] * scale);
 }
 
-// Write up to n samples into the ring without drop accounting; returns
-// samples taken. The pumps decide the overrun policy themselves: the file
-// pump blocks and retries (a file is not real-time — nothing is lost), the
-// UDP pump drops the datagram tail and counts it (a real-time source that
-// cannot be paused — the reference prints "O" on the equivalent USRP
-// overrun, SURVEY.md §5.3).
-uint64_t push_f32_take(Stream* s, const float* iq, uint64_t n) {
+// The AGC peak's limit: |x| above 3.4e38f (inf, NaN and the largest
+// finite floats) is skipped, so that one corrupt sample cannot drive the
+// gain to 0 and quantize the whole block to silence with no error.
+const int32_t kPeakLimitBits = [] {
+  const float lim = 3.4e38f;
+  int32_t b;
+  std::memcpy(&b, &lim, sizeof b);
+  return b;
+}();
+
+// Largest |x| at or under the limit over n floats, as its bits: for
+// sign-cleared floats the integer order of the bits is the order of the
+// values, so an integer max vectorizes where a float compare chain does not
+// (signed: GCC vectorizes this select and max for int32, not for uint32).
+int32_t peak_bits(const float* x, uint64_t n, int32_t peak) {
+  for (uint64_t i = 0; i < n; ++i) {
+    int32_t b;
+    std::memcpy(&b, x + i, sizeof b);
+    b &= 0x7fffffff;
+    b = b <= kPeakLimitBits ? b : 0;
+    peak = b > peak ? b : peak;
+  }
+  return peak;
+}
+
+// Write up to n samples of the wire format into the ring without drop
+// accounting; returns samples taken. The pumps decide the overrun policy
+// themselves: the file pump blocks and retries (a file is not real-time —
+// nothing is lost), the UDP pump drops the datagram tail and counts it (a
+// real-time source that cannot be paused — the reference prints "O" on the
+// equivalent USRP overrun, SURVEY.md §5.3).
+uint64_t push_take(Stream* s, const uint8_t* src, int format, uint64_t n) {
   uint64_t take = std::min(n, ring_free(s->ring));
-  if (take) ring_write(s->ring, iq, take);
+  if (take) ring_write(s->ring, src, format, take);
   s->real_pushed.fetch_add(take);
   return take;
+}
+
+uint64_t push_counted(void* h, const void* raw, int format, uint64_t n) {
+  auto* s = static_cast<Stream*>(h);
+  uint64_t take = push_take(s, static_cast<const uint8_t*>(raw), format, n);
+  if (take < n) s->ring.dropped.fetch_add(n - take);
+  return take;
+}
+
+// The next framed block [left halo | block | right halo], read where it
+// lies: the halo from `carry`, then block + right from the ring in at most
+// two spans. frame() returns 1 with the spans set, 0 when the ring holds
+// no block yet, -1 at the end of the stream (a final partial block is
+// zero-padded first); advance() then keeps the block's last `left` samples
+// as the next carry and releases its ring slots.
+struct Frame {
+  const float* ptr[3];
+  uint64_t len[3];  // samples
+};
+
+int frame(Stream* s, Frame* f) {
+  const uint64_t need = s->block + s->right;
+  uint64_t avail = ring_avail(s->ring);
+  bool eof = s->ring.eof.load(std::memory_order_acquire);
+  if (eof && s->next_start - s->start_offset >= s->real_pushed.load())
+    return -1;
+  if (avail < need) {
+    if (!eof) return 0;
+    // zero-pad the stream tail so the remaining real samples frame into
+    // full blocks; termination is by real_pushed, not ring emptiness
+    uint64_t pad = need - avail;
+    static thread_local std::vector<float> zeros;
+    if (zeros.size() < 2 * pad) zeros.resize(2 * pad, 0.f);
+    ring_write(s->ring, reinterpret_cast<const uint8_t*>(zeros.data()), kF32,
+               std::min(pad, ring_free(s->ring)));
+    if (ring_avail(s->ring) < need) return 0;  // ring too small (shouldn't happen)
+  }
+  // peek block+right without consuming right (it belongs to the next block)
+  uint64_t idx = s->ring.tail.load(std::memory_order_relaxed) & s->ring.mask();
+  uint64_t first = std::min(need, s->ring.capacity - idx);
+  *f = Frame{{s->carry, s->ring.data + 2 * idx, s->ring.data},
+             {s->left, first, need - first}};
+  return 1;
+}
+
+void advance(Stream* s, int64_t* start_sample) {
+  uint64_t t = s->ring.tail.load(std::memory_order_relaxed);
+  // carry = last `left` samples of the owned block
+  for (uint64_t i = 0; i < s->left; ++i) {
+    uint64_t idx = (t + s->block - s->left + i) & s->ring.mask();
+    s->carry[2 * i] = s->ring.data[2 * idx];
+    s->carry[2 * i + 1] = s->ring.data[2 * idx + 1];
+  }
+  s->ring.tail.store(t + s->block, std::memory_order_release);
+  *start_sample = static_cast<int64_t>(s->next_start);
+  s->next_start += s->block;
+}
+
+void quantize_planar(const float* iq, int8_t* out_i, int8_t* out_q,
+                     uint64_t n_samples, float scale) {
+  for (uint64_t i = 0; i < n_samples; ++i) {
+    out_i[i] = quant_i8(iq[2 * i] * scale);
+    out_q[i] = quant_i8(iq[2 * i + 1] * scale);
+  }
+}
+
+// A framed block quantized with `scale` into planar rows of out_len bytes,
+// zero past the frame.
+void quantize_frame_planar(const Frame& f, int8_t* out_i, int8_t* out_q,
+                           uint64_t out_len, float scale) {
+  uint64_t off = 0;
+  for (int k = 0; k < 3; ++k) {
+    quantize_planar(f.ptr[k], out_i + off, out_q + off, f.len[k], scale);
+    off += f.len[k];
+  }
+  std::memset(out_i + off, 0, out_len - off);
+  std::memset(out_q + off, 0, out_len - off);
 }
 
 }  // namespace
@@ -159,31 +289,20 @@ void iq_stream_destroy(void* h) {
 
 // ---- producer side ---------------------------------------------------------
 
-// Push float32 I/Q pairs. Returns samples accepted (may be < n when full);
-// the shortfall is counted as dropped (this is the one-shot non-blocking
-// API — a caller that does not retry has lost those samples).
+// Push float32 I/Q pairs (or, below, sc16/uc8 words). Returns samples
+// accepted (may be < n when full); the shortfall is counted as dropped (this
+// is the one-shot non-blocking API — a caller that does not retry has lost
+// those samples).
 uint64_t iq_stream_push_f32(void* h, const float* iq, uint64_t n) {
-  auto* s = static_cast<Stream*>(h);
-  uint64_t take = push_f32_take(s, iq, n);
-  if (take < n) s->ring.dropped.fetch_add(n - take);
-  return take;
+  return push_counted(h, iq, kF32, n);
 }
 
-// thread_local std::vector scratch (NOT raw new[]: a raw pointer has no
-// thread-exit destructor, so every short-lived worker thread — e.g. the
-// multichannel framing pool — would leak its block-sized buffer)
 uint64_t iq_stream_push_uc8(void* h, const uint8_t* raw, uint64_t n) {
-  static thread_local std::vector<float> buf;
-  if (buf.size() < 2 * n) buf.resize(2 * n);
-  convert_uc8(raw, buf.data(), n);
-  return iq_stream_push_f32(h, buf.data(), n);
+  return push_counted(h, raw, kUc8, n);
 }
 
 uint64_t iq_stream_push_sc16(void* h, const int16_t* raw, uint64_t n) {
-  static thread_local std::vector<float> buf;
-  if (buf.size() < 2 * n) buf.resize(2 * n);
-  convert_sc16(raw, buf.data(), n);
-  return iq_stream_push_f32(h, buf.data(), n);
+  return push_counted(h, raw, kSc16, n);
 }
 
 void iq_stream_set_eof(void* h) {
@@ -216,13 +335,9 @@ int iq_stream_rcvbuf(void* h) {
 // does not apply (the chunks arrive as host complex64 arrays).
 void iq_quantize_planar_i8(const float* iq, int8_t* out_i, int8_t* out_q,
                            uint64_t n_samples, float scale) {
-  // the ONE fused quantize+planar-split loop: the framers below call
-  // this too (three hand-copied bodies used to carry it;
-  // same consolidation rationale as quantize_i8's comment)
-  for (uint64_t i = 0; i < n_samples; ++i) {
-    out_i[i] = quant_i8(iq[2 * i] * scale);
-    out_q[i] = quant_i8(iq[2 * i + 1] * scale);
-  }
+  // the ONE fused quantize+planar-split loop: the framers below run it
+  // too, span by span (same consolidation rationale as quant_i8's comment)
+  quantize_planar(iq, out_i, out_q, n_samples, scale);
 }
 
 // ---- background pumps ------------------------------------------------------
@@ -247,7 +362,7 @@ int iq_stream_start_file(void* h, const char* path, int format,
   struct stat stbuf {};
   bool regular = fstat(fileno(f), &stbuf) == 0 && S_ISREG(stbuf.st_mode);
   if (offset_samples) {
-    uint64_t elem = format == 0 ? 8 : (format == 1 ? 4 : 2);
+    uint64_t elem = wire_bytes(format);
     if (std::fseek(f, static_cast<long>(offset_samples * elem),
                    SEEK_SET) != 0) {
       std::fclose(f);
@@ -259,12 +374,11 @@ int iq_stream_start_file(void* h, const char* path, int format,
   s->pump = std::thread([s, f, format, throttle_sps, regular]() {
     constexpr uint64_t CHUNK = 1 << 16;
     auto* raw = new uint8_t[CHUNK * 8];
-    auto* conv = new float[CHUNK * 2];
     auto t0 = std::chrono::steady_clock::now();
     uint64_t sent = 0;
     uint64_t pend = 0;   // carried partial-element bytes (pipe reads)
     while (!s->stop.load()) {
-      uint64_t elem = format == 0 ? 8 : (format == 1 ? 4 : 2);
+      uint64_t elem = wire_bytes(format);
       uint64_t n;
       if (regular) {
         n = std::fread(raw, elem, CHUNK, f);
@@ -289,21 +403,12 @@ int iq_stream_start_file(void* h, const char* path, int format,
         if (n == 0) continue;             // only a partial element yet
       }
       if (n == 0) break;
-      const float* src;
-      if (format == 0) {
-        src = reinterpret_cast<const float*>(raw);
-      } else if (format == 1) {
-        convert_sc16(reinterpret_cast<const int16_t*>(raw), conv, n);
-        src = conv;
-      } else {
-        convert_uc8(raw, conv, n);
-        src = conv;
-      }
       uint64_t off = 0;
       while (off < n && !s->stop.load()) {
         // blocking retry, NO drop accounting: a file source pauses until
-        // the consumer catches up; nothing is ever lost
-        uint64_t took = push_f32_take(s, src + 2 * off, n - off);
+        // the consumer catches up; nothing is ever lost. The words are
+        // converted where they land in the ring.
+        uint64_t took = push_take(s, raw + off * elem, format, n - off);
         off += took;
         if (took == 0)
           std::this_thread::sleep_for(std::chrono::microseconds(200));
@@ -331,7 +436,6 @@ int iq_stream_start_file(void* h, const char* path, int format,
     }
     std::fclose(f);
     delete[] raw;
-    delete[] conv;
     s->ring.eof.store(true);
   });
   return 0;
@@ -403,7 +507,6 @@ int iq_stream_start_udp(void* h, const char* host, int port,
       // n == 0 is an EMPTY datagram (legal on SOCK_DGRAM), not EOF
       if (n == 0) continue;
       uint64_t samples = static_cast<uint64_t>(n) / 8;
-      const float* src = reinterpret_cast<const float*>(buf);
       // real-time overrun policy: take what fits, DROP the rest of the
       // datagram and count it (iq_stream_dropped). Blocking here would
       // only move the loss into the kernel socket buffer where it is
@@ -411,7 +514,7 @@ int iq_stream_start_udp(void* h, const char* host, int port,
       // (Dropped samples vanish from the sample counter, so downstream
       // timestamps compress across an overrun — same loss the reference
       // has on a USRP "O"; the drop counter is the operator's signal.)
-      uint64_t took = push_f32_take(s, src, samples);
+      uint64_t took = push_take(s, buf, kF32, samples);
       if (took < samples) s->ring.dropped.fetch_add(samples - took);
     }
     delete[] buf;
@@ -429,45 +532,14 @@ int iq_stream_start_udp(void* h, const char* host, int port,
 //     is emitted zero-padded, then -1 forever).
 int iq_stream_next_block(void* h, float* out, int64_t* start_sample) {
   auto* s = static_cast<Stream*>(h);
-  const uint64_t need = s->block + s->right;
-  uint64_t avail = ring_avail(s->ring);
-  bool eof = s->ring.eof.load(std::memory_order_acquire);
-  if (eof && s->next_start - s->start_offset >= s->real_pushed.load())
-    return -1;
-  if (avail < need) {
-    if (!eof) return 0;
-    // zero-pad the stream tail so the remaining real samples frame into
-    // full blocks; termination is by real_pushed, not ring emptiness
-    uint64_t pad = need - avail;
-    static thread_local std::vector<float> zeros;
-    if (zeros.size() < 2 * pad) zeros.resize(2 * pad, 0.f);
-    ring_write(s->ring, zeros.data(), std::min(pad, ring_free(s->ring)));
-    if (ring_avail(s->ring) < need) return 0;  // ring too small (shouldn't happen)
+  Frame f;
+  int rc = frame(s, &f);
+  if (rc != 1) return rc;
+  for (int k = 0; k < 3; ++k) {
+    std::memcpy(out, f.ptr[k], f.len[k] * 2 * sizeof(float));
+    out += 2 * f.len[k];
   }
-  std::memcpy(out, s->carry, 2 * s->left * sizeof(float));
-  // peek block+right without consuming right (it belongs to the next
-  // block) — two memcpy spans at the wrap point, not an elementwise
-  // masked loop (this is the per-block hot copy of the consumer thread)
-  uint64_t t = s->ring.tail.load(std::memory_order_relaxed);
-  uint64_t cap = s->ring.capacity;
-  {
-    uint64_t idx = t & s->ring.mask();
-    uint64_t first = std::min(need, cap - idx);
-    std::memcpy(out + 2 * s->left, s->ring.data + 2 * idx,
-                first * 2 * sizeof(float));
-    if (need > first)
-      std::memcpy(out + 2 * (s->left + first), s->ring.data,
-                  (need - first) * 2 * sizeof(float));
-  }
-  // carry = last `left` samples of the owned block
-  for (uint64_t i = 0; i < s->left; ++i) {
-    uint64_t idx = (t + s->block - s->left + i) & s->ring.mask();
-    s->carry[2 * i] = s->ring.data[2 * idx];
-    s->carry[2 * i + 1] = s->ring.data[2 * idx + 1];
-  }
-  s->ring.tail.store(t + s->block, std::memory_order_release);
-  *start_sample = static_cast<int64_t>(s->next_start);
-  s->next_start += s->block;
+  advance(s, start_sample);
   return 1;
 }
 
@@ -475,62 +547,54 @@ int iq_stream_next_block(void* h, float* out, int64_t* start_sample) {
 int iq_stream_next_block_i8(void* h, int8_t* out, int64_t* start_sample,
                             float scale) {
   auto* s = static_cast<Stream*>(h);
-  const uint64_t total = s->left + s->block + s->right;
-  static thread_local std::vector<float> buf;
-  if (buf.size() < 2 * total) buf.resize(2 * total);
-  int rc = iq_stream_next_block(h, buf.data(), start_sample);
-  if (rc == 1) quantize_i8(buf.data(), out, total, scale);
-  return rc;
+  Frame f;
+  int rc = frame(s, &f);
+  if (rc != 1) return rc;
+  for (int k = 0; k < 3; ++k) {
+    quantize_i8(f.ptr[k], out, f.len[k], scale);
+    out += 2 * f.len[k];
+  }
+  advance(s, start_sample);
+  return 1;
 }
 
-// Planar int8 framer: one fused pass ring-f32 -> quantized planar I and Q
-// streams (each out_len >= left+block+right bytes, zero-padded past the
-// frame) — the exact layout the Pallas planar kernel DMAs, with no
-// interleaved intermediate on the Python side.
+// Planar int8 framer: one pass from the ring's f32 pairs, where they lie,
+// to quantized planar I and Q streams (each out_len >= left+block+right
+// bytes, zero-padded past the frame) — the exact layout the Pallas planar
+// kernel DMAs, with no interleaved intermediate on the Python side.
 int iq_stream_next_block_planar_i8(void* h, int8_t* out_i, int8_t* out_q,
                                    uint64_t out_len, int64_t* start_sample,
                                    float scale) {
   auto* s = static_cast<Stream*>(h);
-  const uint64_t total = s->left + s->block + s->right;
-  if (out_len < total) return -2;
-  static thread_local std::vector<float> bufv;
-  if (bufv.size() < 2 * total) bufv.resize(2 * total);
-  float* buf = bufv.data();
-  int rc = iq_stream_next_block(h, buf, start_sample);
+  if (out_len < s->left + s->block + s->right) return -2;
+  Frame f;
+  int rc = frame(s, &f);
   if (rc != 1) return rc;
-  iq_quantize_planar_i8(buf, out_i, out_q, total, scale);
-  std::memset(out_i + total, 0, out_len - total);
-  std::memset(out_q + total, 0, out_len - total);
+  quantize_frame_planar(f, out_i, out_q, out_len, scale);
+  advance(s, start_sample);
   return 1;
 }
 
 // AGC variant: per-block gain = target / peak over the FRAMED block
 // (halos included), matching the Python path's quantize_i8 semantics
-// bit for bit (gain written to *gain_out; full_scale = gain / 127).
+// bit for bit (gain written to *gain_out; full_scale = gain / 127). The
+// block is read twice where it lies, for the peak and for the quantize.
 int iq_stream_next_block_planar_agc(void* h, int8_t* out_i, int8_t* out_q,
                                     uint64_t out_len, int64_t* start_sample,
                                     float target, float* gain_out) {
   auto* s = static_cast<Stream*>(h);
-  const uint64_t total = s->left + s->block + s->right;
-  if (out_len < total) return -2;
-  static thread_local std::vector<float> bufv;
-  if (bufv.size() < 2 * total) bufv.resize(2 * total);
-  float* buf = bufv.data();
-  int rc = iq_stream_next_block(h, buf, start_sample);
+  if (out_len < s->left + s->block + s->right) return -2;
+  Frame f;
+  int rc = frame(s, &f);
   if (rc != 1) return rc;
-  float peak = 0.f;
-  for (uint64_t i = 0; i < 2 * total; ++i) {
-    float a = buf[i] < 0 ? -buf[i] : buf[i];
-    // finite-only: one corrupt Inf sample otherwise drives gain to 0
-    // and the whole block quantizes to silence with no error;
-    // NaN already fails the > compare
-    if (a > peak && a <= 3.4e38f) peak = a;
-  }
+  int32_t bits = 0;
+  for (int k = 0; k < 3; ++k) bits = peak_bits(f.ptr[k], 2 * f.len[k], bits);
+  float peak;
+  std::memcpy(&peak, &bits, sizeof peak);
   if (peak == 0.f) peak = 1.f;
   const float g = target / peak;
-  iq_quantize_planar_i8(buf, out_i, out_q, total, g);
-  std::memset(out_i + total, 0, out_len - total);
-  std::memset(out_q + total, 0, out_len - total);
+  quantize_frame_planar(f, out_i, out_q, out_len, g);
+  advance(s, start_sample);
   *gain_out = g;
   return 1;
 }

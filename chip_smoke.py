@@ -172,7 +172,13 @@ process per source, all at once), then:
      frames at each mesh (tables == the CPU's, every frame decoded);
      `python -m airmodes_torch.graft_entry` (exit 0, the card's name in
      its output);
- 22. prints one JSON line of per-kernel numbers, the card line, and last
+ 22. times the native framer alone (`native/iqstream.cc`, no card): 32
+     blocks of an in-memory sc16 file at the 20 Msps geometry and of a
+     uc8 file at 2 Msps, each pumped into a ring that holds all of it and
+     then framed with the AGC; prints ms a block of the pump and of the
+     framing, and holds every row, start and gain bit for bit against
+     `quantize_planar_i8_np` over the same frames;
+ 23. prints one JSON line of per-kernel numbers, the card line, and last
      {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero. Without a CUDA card, or without the
@@ -3966,6 +3972,100 @@ def _table_messages(table, cfg, full_scale):
     return sorted(msgs, key=lambda m: (float(m.split()[5]), m))
 
 
+# --- phase 22: the native framer alone --------------------------------------
+
+FRAMER_BLOCKS = 32
+
+
+def _write_memfd(name, data):
+    """An in-memory file holding `data`, as a path the C pump can open."""
+    fd = os.memfd_create(name)
+    view = memoryview(data).cast("B")
+    while view:
+        view = view[os.write(fd, view):]
+    return fd, f"/proc/self/fd/{fd}"
+
+
+def phase_framer(smi, n_blocks=FRAMER_BLOCKS, cases=None):
+    """The native framer alone, on the host: for each (wire format,
+    config) of `cases` (default: sc16 at the 20 Msps geometry, uc8 at
+    `DspConfig()`), a capture of n_blocks + 1 blocks whose level changes
+    every block, written to an in-memory file, pumped into a ring that
+    holds all of it (the pump's time), then n_blocks blocks framed with
+    the AGC (each call timed; no block waits on the source). Every row,
+    start and gain must equal `quantize_planar_i8_np` over the same frame
+    of the capture as the pump converts it. Returns {format: (pump ms,
+    framing ms) a block}."""
+    import numpy as np
+    from airmodes_torch.config import DspConfig
+    from airmodes_torch.dsp.host import quantize_planar_i8_np
+    from airmodes_torch.native import IQStream
+    if cases is None:
+        cases = (("sc16", DspConfig(channel_rate=20e6)), ("uc8", DspConfig()))
+    rng = np.random.default_rng(22)
+    out = {}
+    for fmt, cfg in cases:
+        left, N, right = cfg.left_halo, cfg.block_size, cfg.right_halo
+        n = (n_blocks + 1) * N
+        level = np.repeat(rng.uniform(0.05, 1.0, n_blocks + 1), 2 * N)
+        if fmt == "sc16":
+            words = np.round(rng.uniform(-1, 1, 2 * n) * level * 32767
+                             ).astype(np.int16)
+            x = words.astype(np.float32) * np.float32(1 / 32768)
+        else:
+            words = np.round(127.5 + rng.uniform(-1, 1, 2 * n) * level
+                             * 127.5).astype(np.uint8)
+            x = ((words.astype(np.float32) - np.float32(127.5))
+                 * np.float32(1 / 127.5))
+        iq = np.concatenate([np.zeros(2 * left, np.float32), x]
+                            ).view(np.complex64)
+        fd, path = _write_memfd(f"framer.{fmt}", words)
+        st = IQStream(cfg, ring_samples=n + left + N + right)
+        rows = np.zeros((n_blocks, 2, st.total), np.int8)
+        got, frame_s = [], []
+        try:
+            t0 = time.perf_counter()
+            st.start_file(path, fmt=fmt)
+            while st.available < n:
+                if time.perf_counter() - t0 > 60:
+                    raise AssertionError(f"framer {fmt}: the pump put "
+                                         f"{st.available} of {n} samples "
+                                         f"in the ring in 60 s")
+                time.sleep(0.0002)
+            pump_s = time.perf_counter() - t0
+            for k in range(n_blocks):
+                t0 = time.perf_counter()
+                got.append(st.next_block_planar_agc(rows[k, 0], rows[k, 1]))
+                frame_s.append(time.perf_counter() - t0)
+        finally:
+            st.close()
+            os.close(fd)
+        for k, (start, gain) in enumerate(got):
+            seg = iq[k * N: k * N + st.total]
+            a = np.abs(seg.view(np.float32))
+            peak = np.float32(np.max(a, initial=0, where=a <= 3.4e38)) or 1
+            want_gain = np.float32(120.0) / np.float32(peak)
+            wi, wq = quantize_planar_i8_np(seg, want_gain)
+            if (start != k * N or gain != want_gain
+                    or not np.array_equal(rows[k, 0], wi)
+                    or not np.array_equal(rows[k, 1], wq)):
+                raise AssertionError(
+                    f"framer {fmt}: block {k} (start {start}, gain {gain}) "
+                    f"!= quantize_planar_i8_np's (gain {want_gain}; "
+                    f"{int((rows[k, 0] != wi).sum())} I and "
+                    f"{int((rows[k, 1] != wq).sum())} Q bytes differ)")
+        pump_ms = pump_s * 1e3 / (n_blocks + 1)
+        ms = np.array(frame_s) * 1e3
+        out[fmt] = (pump_ms, float(ms.mean()))
+        print(f"framer alone, {fmt} at {cfg.channel_rate / 1e6:g} Msps, "
+              f"{n_blocks} blocks of {N} (+{left}/{right} halo): pump "
+              f"{pump_ms:.3f} ms a block into the ring; AGC framing "
+              f"{ms.mean():.3f} ms a block (median {np.median(ms):.3f}, "
+              f"min {ms.min():.3f}, max {ms.max():.3f}); every row, start "
+              f"and gain == quantize_planar_i8_np [{smi}]", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4127,6 +4227,7 @@ def main() -> int:
         phase_bench(dev, smi)
         phase_graphs(cfg, dev, tmp, smi)
         graft_launches = phase_graft_entry(dev, smi)
+    phase_framer(smi)
 
     half = cfg.nms_chips * cfg.sps
     b1_ms, b1_plain, b1_bytes, b1_samples = b1_t

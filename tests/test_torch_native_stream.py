@@ -375,7 +375,7 @@ def test_iqstream_reads_match_reference(native_ok):
     from airmodes import native as jax_native
     from airmodes.config import DspConfig as JaxCfg
     from airmodes_torch import native
-    from airmodes_torch.dsp.host import quantize_i8_np
+    from airmodes_torch.dsp.host import quantize_i8_np, quantize_planar_i8_np
     rng = np.random.default_rng(8)
     n = 3 * (1 << 14) + 999
     iq = ((rng.standard_normal(n) + 1j * rng.standard_normal(n)) * 0.3
@@ -401,6 +401,25 @@ def test_iqstream_reads_match_reference(native_ok):
     wi, wq = jax_native.quantize_planar_i8(iq, 100.0)
     assert np.array_equal(gi, wi) and np.array_equal(gq, wq)
     assert np.array_equal(gi, quantize_i8_np(iq.real, 100.0))
+    # the specials: NaN (also with payload bits, quiet and signalling),
+    # +-inf, -0, subnormals, exact halves after the gain (k + 0.5) / 100,
+    # +-127.5 and the neighbours of +-127 and +-127.5
+    halves = (np.arange(-130, 130) + 0.5).astype(np.float32) / np.float32(100)
+    edges = np.array([127.0, 127.5, 128.0, 126.5], np.float32) / np.float32(100)
+    special = np.concatenate([
+        np.array([np.nan, np.inf, -np.inf, -0.0, 0.0, 1e-45, -1e-45, 3.4e38,
+                  -3.4e38, 3.402e38], np.float32),
+        np.array([0x7fc00005, 0xffc0007f, 0x7f800001, 0xff812345],
+                 np.uint32).view(np.float32),
+        halves, edges, -edges, np.nextafter(edges, np.float32(2)),
+        np.nextafter(edges, np.float32(0))])
+    sp = special.view(np.complex64)
+    gi, gq = native.quantize_planar_i8(sp, 100.0)
+    with np.errstate(over="ignore", invalid="ignore"):   # 3.4e38 * 100
+        wi, wq = quantize_planar_i8_np(sp, np.float32(100.0))
+    assert np.array_equal(gi, wi) and np.array_equal(gq, wq)
+    ri, rq = jax_native.quantize_planar_i8(sp, 100.0)
+    assert np.array_equal(gi, ri) and np.array_equal(gq, rq)
 
 
 def _planar_row(st, agc: bool):
@@ -458,9 +477,19 @@ def test_iqstream_planar_rows_match_reference_at_edges(native_ok, agc):
     special = np.array([np.nan, np.inf, -np.inf, 3.401e38, -3.401e38, -0.0,
                         1e-45, -1e-45, 5.0, -5.0], np.float32)
     x[6 * bs + 40: 6 * bs + 40 + len(special)] = special
-    kw = dict(block_size=bs, max_detections=16)
+    rows = _pushed_rows_both(iq, dict(block_size=bs, max_detections=16), agc)
+    _same_rows(*rows)
+    assert len(rows[0]) == 6
+
+
+def _pushed_rows_both(iq, kw, agc):
+    """`iq` pushed through the port's and the reference's IQStream, each
+    with a ring of block + right halo (frames wrap it), framing whole
+    blocks as the ring fills: both streams' planar rows."""
+    from airmodes import native as jax_native
+    from airmodes_torch import native
     cfg = DspConfig(**kw)
-    ring = cfg.block_size + cfg.right_halo          # frames wrap the ring
+    ring = cfg.block_size + cfg.right_halo
     streams = [native.IQStream(cfg, ring_samples=ring),
                jax_native.IQStream(JaxCfg(**kw), ring_samples=ring)]
     try:
@@ -477,8 +506,57 @@ def test_iqstream_planar_rows_match_reference_at_edges(native_ok, agc):
     finally:
         for st in streams:
             st.close()
+    return rows
+
+
+# Each case: the block size, and the block whose frame it builds with the
+# AGC gain that frame must get (target 120 over its finite peak). The ring
+# holds block + right halo: at 2^14 it wraps where a block ends; at 2^14 - 1
+# the wrap of block 1's frame falls 2 samples into its right halo.
+HALO_CASES = {"peak_in_left_halo": (1 << 14, 2, 120 / 0.75),
+              "peak_in_right_halo": (1 << 14, 2, 120 / 0.625),
+              "no_finite_sample": (1 << 14, 2, 120.0),
+              "wrap_in_right_halo": ((1 << 14) - 1, 1, 120 / 0.875)}
+
+
+@pytest.mark.parametrize("agc", [True, False], ids=["agc", "fixed_gain"])
+@pytest.mark.parametrize("case", list(HALO_CASES))
+def test_iqstream_planar_rows_match_reference_at_halos(native_ok, case,
+                                                       agc):
+    """Frames whose only finite peak lies in a halo (the left one comes from
+    the carry, the right one from the ring), a frame of nothing but NaN and
+    +-inf (the peak falls back to 1.0), and a ring that wraps inside a right
+    halo: the same rows, starts and gains as the reference's framer."""
+    bs, k, gain = HALO_CASES[case]
+    rng = np.random.default_rng(23)
+    n = 5 * bs + 99
+    iq = ((rng.standard_normal(n) + 1j * rng.standard_normal(n)) * 0.1
+          ).astype(np.complex64)
+    kw = dict(block_size=bs, max_detections=16)
+    cfg = DspConfig(**kw)
+    lo, end = k * bs - cfg.left_halo, (k + 1) * bs    # frame k: [lo, hi)
+    hi = end + cfg.right_halo
+    x = iq.view(np.float32)
+    if case == "no_finite_sample":
+        x[2 * lo: 2 * hi] = np.resize(np.array(
+            [0x7fc00000, 0x7f800000, 0xff800000, 0x7fc00021, 0xff800003],
+            np.uint32).view(np.float32), 2 * (hi - lo))   # NaN (payloads), inf
+    else:
+        x[2 * lo: 2 * hi] *= 0.01
+        x[2 * end + 1] = np.inf                 # in the ring, not finite
+        x[2 * (end - 9)] = -np.inf
+        x[2 * (end - 8) + 1] = np.nan
+        at = {"peak_in_left_halo": (lo + 3, -0.75),
+              "peak_in_right_halo": (hi - 2, 0.625),
+              "wrap_in_right_halo": (end + 3, -0.875)}[case]
+        x[2 * at[0] + 1] = at[1]
+        if case == "wrap_in_right_halo":
+            x[2 * (end + 1)] = 0.5              # just before the wrap
+    rows = _pushed_rows_both(iq, kw, agc)
     _same_rows(*rows)
     assert len(rows[0]) == 6
+    if agc:
+        assert rows[0][k][1] == np.float32(gain)
 
 
 @pytest.mark.parametrize("fmt", ["sc16", "uc8"])
@@ -508,6 +586,59 @@ def test_iqstream_file_pump_matches_reference(tmp_path, native_ok, fmt):
             st.close()
     _same_rows(*rows)
     assert len(rows[0]) == 5
+
+
+@pytest.mark.parametrize("fmt", ["sc16", "uc8"])
+def test_iqstream_fifo_pump_matches_reference(tmp_path, native_ok, fmt):
+    """The file pump on a named pipe: a writer thread sends the capture in
+    pieces that split its samples' words (the pump carries the partial
+    sample to its next read) while the ring, smaller than one read, makes
+    the pump wait: the same AGC rows, starts and gains as the reference's
+    framer on the same capture from a file."""
+    import os
+    import threading
+    from airmodes import native as jax_native
+    from airmodes_torch import native
+    rng = np.random.default_rng(24)
+    n = 3 * (1 << 14) + 555
+    if fmt == "sc16":
+        words = rng.integers(-32768, 32768, 2 * n).astype(np.int16)
+    else:
+        words = rng.integers(0, 256, 2 * n).astype(np.uint8)
+    path, fifo = str(tmp_path / f"cap.{fmt}"), str(tmp_path / f"fifo.{fmt}")
+    words.tofile(path)
+    os.mkfifo(fifo)
+    data = words.tobytes()
+    cuts = np.cumsum(rng.integers(1, 4099, len(data) // 1000))
+    cuts = [0] + [int(c) for c in cuts[cuts < len(data)]] + [len(data)]
+    assert any(c % (2 * words.itemsize) for c in cuts)   # a sample split
+
+    def write():
+        with open(fifo, "wb", buffering=0) as f:
+            for a, b in zip(cuts[:-1], cuts[1:]):
+                f.write(data[a:b])
+
+    kw = dict(block_size=1 << 14, max_detections=16)
+    cfg = DspConfig(**kw)
+    ring = cfg.block_size + cfg.right_halo
+    writer = threading.Thread(target=write, daemon=True)
+    writer.start()
+    st = native.IQStream(cfg, ring_samples=ring)
+    try:
+        st.start_file(fifo, fmt=fmt)
+        got = _planar_rows(st, agc=True)
+    finally:
+        st.close()
+    writer.join(timeout=60)
+    assert not writer.is_alive()
+    ref = jax_native.IQStream(JaxCfg(**kw), ring_samples=ring)
+    try:
+        ref.start_file(path, fmt=fmt)
+        want = _planar_rows(ref, agc=True)
+    finally:
+        ref.close()
+    _same_rows(got, want)
+    assert len(got) == 4
 
 
 def test_iqstream_next_block_into_a_buffer(native_ok):
