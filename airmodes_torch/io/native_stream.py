@@ -18,8 +18,9 @@ call per time step down the channel axis):
   a noise window other than 128, a block that is not a multiple of 4096)
   takes the full-block path on the same rows, graphed the same way, as
   the reference does;
-- the caller's thread does one `.cpu()` of the packed (C, K+1, 9) table per
-  batch, then `unpack_table` and `table_to_messages`.
+- the caller's thread drains each batch's packed (C, K+1, 9) table with
+  `io.stream._drain` (the drain of every runner): one `.cpu()`, then
+  `unpack_table` and `table_to_messages` per row.
 
 Under a profiler each stage is a span (`utils.profiling.span`):
 `airmodes.frame` per block framed (on the thread that frames), with
@@ -48,12 +49,12 @@ import torch
 
 from ..config import DspConfig
 from ..dsp import host as host_mod
-from ..dsp.pipeline import (_to_device, demod_batch_packed, resolve_device,
-                            unpack_table)
+from ..dsp.pipeline import _to_device, demod_batch_packed, resolve_device
 from ..kernels.preamble import (demod_batch_packed_planar_jit, planar_length,
                                 supported_planar_tile)
 from ..utils.graphs import graphed
 from ..utils.profiling import span
+from .stream import _drain
 
 # The kernels rescale int8 by 1/127: a row quantized as round(f32 * scale)
 # has full scale scale/I8_SCALE (1.0 at scale = I8_SCALE), an AGC row
@@ -322,15 +323,7 @@ def run_native_pipelined(
     for packed, rows in _pipeline(
             produce, lambda it: (step(it[0], it[1]), it[2]), depth,
             on_exit):
-        with span("airmodes.fetch"):
-            arr = packed.cpu().numpy()
-        for j, (start, fs) in enumerate(rows):
-            with span("airmodes.decode"):
-                table = unpack_table(arr[j])
-                msgs = host_mod.table_to_messages(
-                    table, start, cfg.channel_rate, epoch=epoch,
-                    stats=stats, full_scale=fs)
-            yield msgs
+        yield from _drain(packed, rows, cfg, epoch, stats)
 
 
 def run_native_channels(
@@ -383,22 +376,18 @@ def run_native_channels(
                 if max_blocks is not None and n_steps >= max_blocks:
                     return
                 ti, tq, xi, xq = _host_rows(C, P, pinned)
-                starts = [0] * C
-                scales = [1.0] * C
-                live = [False] * C
+                # (start_sample, full_scale) of each live channel's row
+                rows: List[Optional[tuple]] = [None] * C
 
                 def fill(c):
                     if ended[c]:
                         return
-                    st = srcs[c].next_row(xi[c], xq[c], scale=scale,
-                                          stop=stop)
-                    if st is None:
+                    rows[c] = srcs[c].next_row(xi[c], xq[c], scale=scale,
+                                               stop=stop)
+                    if rows[c] is None:
                         ended[c] = True
                         xi[c] = 0
                         xq[c] = 0
-                    else:
-                        starts[c], scales[c] = st
-                        live[c] = True
 
                 if pool is None:
                     fill(0)
@@ -406,9 +395,9 @@ def run_native_channels(
                     list(pool.map(fill, range(C)))
                 if stats is not None:  # overrun gauge (real-time sources)
                     stats.ring_dropped = sum(s.dropped for s in srcs)
-                if not any(live):
+                if all(r is None for r in rows):
                     return
-                yield ti, tq, starts, scales, live
+                yield ti, tq, rows
                 n_steps += 1
         finally:
             if pool is not None:
@@ -423,19 +412,7 @@ def run_native_channels(
             for s in srcs:
                 s.close()
 
-    for packed, starts, scales, live in _pipeline(
-            produce, lambda it: (step(it[0], it[1]),) + it[2:], depth,
+    for packed, rows in _pipeline(
+            produce, lambda it: (step(it[0], it[1]), it[2]), depth,
             on_exit):
-        with span("airmodes.fetch"):
-            arr = packed.cpu().numpy()
-        out: List[Optional[List[str]]] = []
-        for c in range(C):
-            if not live[c]:
-                out.append(None)
-                continue
-            with span("airmodes.decode"):
-                table = unpack_table(arr[c])
-                out.append(host_mod.table_to_messages(
-                    table, starts[c], cfg.channel_rate, epoch=epoch,
-                    stats=stats, full_scale=scales[c]))
-        yield out
+        yield list(_drain(packed, rows, cfg, epoch, stats))

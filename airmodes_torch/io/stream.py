@@ -32,12 +32,15 @@ is drained, so nothing is refilled in flight. The step itself never waits
 on the card; packed tables stay there until the drain fetches them, one
 `.cpu()` per entry, in order.
 
-Under a profiler, `_pump`'s runners name their stages with spans
+Every runner here keeps its steps in flight with `_pump`, and every
+runner of the port turns a step's packed table into messages with
+`_drain`. Under a profiler they name their stages with spans
 (`utils.profiling.span`), all on the caller's thread and none open across
-a `yield`: `airmodes.frame` around taking each block from the source
-(with `airmodes.source_wait` inside it around each read of the fused
-runner's capture), `airmodes.dispatch` per step, `airmodes.fetch` per
-`.cpu()` of an entry and `airmodes.decode` per block's table.
+a `yield`: `airmodes.frame` around taking each item from the source (a
+block, or a step's blocks of every channel; with `airmodes.source_wait`
+inside it around each read of the fused runners' captures),
+`airmodes.dispatch` per step, `airmodes.fetch` per step's `.cpu()` and
+`airmodes.decode` per row's table.
 """
 
 from __future__ import annotations
@@ -151,39 +154,43 @@ def _dev_layout(block, quantize_i8: bool):
     return x, fs
 
 
-def _make_drain(cfg, epoch, stats, on_messages, batched: bool):
-    """Entry drainer: entry = (packed table on the device, starts,
-    full_scales, n_real, host buffer owner) -> per-block wire-message
-    lists (padding rows beyond n_real dropped), each also handed to
-    `on_messages` when given."""
-    def drain(entry):
-        packed, starts, scales, n_real, _ = entry
-        with span("airmodes.fetch"):
-            arr = packed.cpu().numpy()
-        out = []
-        for j in range(n_real):
-            with span("airmodes.decode"):
-                table = unpack_table(arr[j] if batched else arr)
-                msgs = host_mod.table_to_messages(
-                    table, starts[j], cfg.channel_rate, epoch=epoch,
-                    stats=stats, full_scale=scales[j])
-            if on_messages:
-                on_messages(msgs)
-            out.append(msgs)
-        return out
-    return drain
+def _drain(packed, rows, cfg, epoch, stats, gains=None):
+    """One step's packed (n, K+1, 9) table on the device -> one entry per
+    row of `rows`, yielded in order: the row's wire messages, decoded with
+    rows[j] = (start, full_scale), or None where rows[j] is None (a row
+    not decoded). Table rows past len(rows) (padding) are not read. With
+    the fused step's device-AGC `gains`, fetched in the same span, row j's
+    full scale is gains[j] / 127 in place of its own. Spans: one
+    `airmodes.fetch` around the step's `.cpu()`, one `airmodes.decode` per
+    row decoded, each closed before its entry is yielded. A runner that
+    yields a step's rows together takes the list; `run_native_pipelined`
+    yields each row before it decodes the next."""
+    with span("airmodes.fetch"):
+        arr = packed.cpu().numpy()
+        gs = None if gains is None else gains.cpu().numpy()
+    for j, row in enumerate(rows):
+        if row is None:
+            yield None
+            continue
+        start, fs = row
+        with span("airmodes.decode"):
+            msgs = host_mod.table_to_messages(
+                unpack_table(arr[j]), start, cfg.channel_rate, epoch=epoch,
+                stats=stats,
+                full_scale=fs if gs is None else float(gs[j]) / 127.0)
+        yield msgs
 
 
 _END = object()
 
 
-def _pump(items, batch: int, depth: int, dispatch, drain):
+def _pump(items, batch: int, depth: int, dispatch):
     """Group `batch` items per dispatch(group) (a trailing partial group is
-    the dispatcher's to pad; its entry carries n_real so the drain drops
-    the padding), keep `depth` dispatched entries in flight, drain in
-    order. Spans: `airmodes.frame` per item taken (and one for the take
-    that finds the end), `airmodes.dispatch` per group; `drain` returns a
-    group's lists before any is yielded."""
+    the dispatcher's to pad; its entry's rows are the real ones only),
+    keep `depth` dispatched entries in flight, and yield each entry, in
+    order, as it leaves the window, for the caller to drain. Spans:
+    `airmodes.frame` per item taken (and one for the take that finds the
+    end), `airmodes.dispatch` per group."""
     inflight: deque = deque()
     acc: List = []
     items = iter(items)
@@ -198,12 +205,12 @@ def _pump(items, batch: int, depth: int, dispatch, drain):
                 inflight.append(dispatch(acc))
             acc = []
             if len(inflight) > depth:
-                yield from drain(inflight.popleft())
+                yield inflight.popleft()
     if acc:
         with span("airmodes.dispatch"):
             inflight.append(dispatch(acc))
     while inflight:
-        yield from drain(inflight.popleft())
+        yield inflight.popleft()
 
 
 def run_pipelined(
@@ -232,25 +239,23 @@ def run_pipelined(
     if step is None:
         step = (_batch_step(cfg, device) if batch > 1
                 else _default_step(cfg, device))
-    drain = _make_drain(cfg, epoch, stats, on_messages, batched=batch > 1)
-
-    if batch == 1:
-        def dispatch1(acc):
-            (block, start), = acc
-            x, fs = _dev_layout(block, quantize_i8)
-            return (step(x, cfg), [start], [fs], 1, None)
-        yield from _pump(blocks, 1, depth, dispatch1, drain)
-        return
 
     def dispatch(acc):
-        # pad a partial batch with the last block's converted form
         devs = [_dev_layout(b, quantize_i8) for b, _ in acc]
+        rows = [(s, fs) for (_, s), (_, fs) in zip(acc, devs)]
+        if batch == 1:
+            # the one-block step's (K+1, 9) table, viewed as one row
+            return step(devs[0][0], cfg)[None], rows, None
+        # pad a partial batch with the last block's converted form
         devs += [devs[-1]] * (batch - len(acc))
         xb, owner = _stack_host([d for d, _ in devs], pinned)
-        return (step(xb, cfg), [s for _, s in acc],
-                [f for _, f in devs], len(acc), owner)
+        return step(xb, cfg), rows, owner
 
-    yield from _pump(blocks, batch, depth, dispatch, drain)
+    for packed, rows, _owner in _pump(blocks, batch, depth, dispatch):
+        for msgs in list(_drain(packed, rows, cfg, epoch, stats)):
+            if on_messages:
+                on_messages(msgs)
+            yield msgs
 
 
 def run_channels(
@@ -277,36 +282,22 @@ def run_channels(
     iters = [iter(cb) for cb in channel_blocks]
     pinned = resolve_device(device).type == "cuda"
     step = step or _batch_step(cfg, device)
-    inflight: deque = deque()
     # silence for ended channels, one per live dtype: a complex64 zero
     # block stacked against int8 blocks would upcast the batch to f32,
     # dropping the planar path and the 1/127 dBFS rescale for every channel
-    zero_dev: dict = {}
+    zeros: dict = {}
 
-    def drain_one() -> List[Optional[List[str]]]:
-        packed, starts, scales, live, _ = inflight.popleft()
-        arr = packed.cpu().numpy()
-        out: List[Optional[List[str]]] = []
-        for c in range(C):
-            if not live[c]:
-                out.append(None)
-                continue
-            table = unpack_table(arr[c])
-            out.append(host_mod.table_to_messages(
-                table, starts[c], cfg.channel_rate, epoch=epoch,
-                stats=stats, full_scale=scales[c]))
-        return out
+    def steps():
+        while True:
+            items = [next(it, None) for it in iters]
+            if all(it is None for it in items):
+                return
+            yield items
 
-    while True:
-        items = [next(it, None) for it in iters]
-        live = [it is not None for it in items]
-        if not any(live):
-            break
-        devs: List = [None] * C
-        for c in range(C):
-            if live[c]:
-                devs[c] = _dev_layout(items[c][0], quantize_i8)
-        ref = next(d for d in devs if d is not None)
+    def dispatch(acc):
+        (items,) = acc
+        devs = [None if it is None else _dev_layout(it[0], quantize_i8)
+                for it in items]
         dtypes = {d[0].dtype for d in devs if d is not None}
         if len(dtypes) > 1:
             # np.stack would upcast (int8+int16 -> int16, int8+f32 -> f32),
@@ -314,20 +305,17 @@ def run_channels(
             raise ValueError(
                 f"run_channels: mixed live-channel dtypes {dtypes}; "
                 "give every channel the same sample format/quantization")
-        zkey = ref[0].dtype
-        if zkey not in zero_dev:
-            zero_dev[zkey] = (np.zeros_like(ref[0]), 1.0)
-        for c in range(C):
-            if devs[c] is None:
-                devs[c] = zero_dev[zkey]
-        xb, owner = _stack_host([d for d, _ in devs], pinned)
-        starts = [items[c][1] if live[c] else 0 for c in range(C)]
-        inflight.append((step(xb, cfg), starts,
-                         [f for _, f in devs], live, owner))
-        if len(inflight) > depth:
-            yield drain_one()
-    while inflight:
-        yield drain_one()
+        ref = next(d[0] for d in devs if d is not None)
+        if ref.dtype not in zeros:
+            zeros[ref.dtype] = np.zeros_like(ref)
+        xb, owner = _stack_host(
+            [zeros[ref.dtype] if d is None else d[0] for d in devs], pinned)
+        rows = [None if it is None else (it[1], d[1])
+                for it, d in zip(items, devs)]
+        return step(xb, cfg), rows, owner
+
+    for packed, rows, _owner in _pump(steps(), 1, depth, dispatch):
+        yield list(_drain(packed, rows, cfg, epoch, stats))
 
 
 # --- the resampled front end: a capture's words -> fused device step --------
@@ -488,19 +476,18 @@ def _fused_setup(cfg, rate_in, start_sample):
     sample: flooring a fractional seek would shift the resampler grid by a
     fraction of a sample against the reported counters (~83 ns of
     permanent timestamp skew at 4 Msps). So the start snaps down to a
-    multiple of p; messages before the requested start are dropped by the
-    drain (_make_fused_drain)."""
+    multiple of p; messages before the requested start are dropped
+    (`_resume_filter`)."""
     p_up, q_dn = rational_rate(rate_in, cfg.channel_rate)
     geometry = raw_geometry(cfg, p_up, q_dn)[:3]
     start = start_sample - start_sample % p_up
     return p_up, q_dn, geometry, start, start * q_dn // p_up
 
 
-def _make_fused_drain(cfg, epoch, stats, on_messages, req_start: int):
-    """Drainer for the fused runners: entry = ((packed table, device-AGC
-    gains), starts, n_real, host buffers) -> per-block wire-message lists,
-    with full_scale = gain/127 per row; messages before the requested
-    resume point (possible only in a snapped first window) are dropped."""
+def _resume_filter(cfg, epoch: float, req_start: int):
+    """keep(msgs, start): a fused row's messages, less those before the
+    requested resume point when the row starts before it (possible only in
+    a snapped first window, `_fused_setup`)."""
     epoch_ns = int(round(epoch * 1e9))
     irate = int(cfg.channel_rate)
 
@@ -513,25 +500,11 @@ def _make_fused_drain(cfg, epoch, stats, on_messages, req_start: int):
         ns = int(m.split()[6])
         return ((ns - epoch_ns) * irate + 500_000_000) // 1_000_000_000
 
-    def drain(entry):
-        (packed, gains), starts, n_real, _ = entry
-        with span("airmodes.fetch"):
-            arr = packed.cpu().numpy()
-            gs = gains.cpu().numpy()
-        out = []
-        for j in range(n_real):
-            with span("airmodes.decode"):
-                table = unpack_table(arr[j])
-                msgs = host_mod.table_to_messages(
-                    table, starts[j], cfg.channel_rate, epoch=epoch,
-                    stats=stats, full_scale=float(gs[j]) / 127.0)
-            if starts[j] < req_start:
-                msgs = [m for m in msgs if _sample_of(m) >= req_start]
-            if on_messages:
-                on_messages(msgs)
-            out.append(msgs)
-        return out
-    return drain
+    def keep(msgs: List[str], start: int) -> List[str]:
+        if start >= req_start:
+            return msgs
+        return [m for m in msgs if _sample_of(m) >= req_start]
+    return keep
 
 
 def run_resampled_fused(
@@ -570,22 +543,26 @@ def run_resampled_fused(
     step = _raw_step(cfg, p_up, q_dn, block, dev)
 
     def dispatch(acc):
-        n_real = len(acc)
         buf = acc[0][0]
         # rows past the last real window: an empty range (zeros), their
-        # tables dropped
+        # tables not read
         valid = torch.zeros((batch, 2), dtype=torch.int32, pin_memory=pinned)
-        valid.numpy()[:n_real] = [r for _, _, r in acc]
-        out = step(buf, valid, gain)
+        valid.numpy()[:len(acc)] = [r for _, _, r in acc]
         # raw start k*raw_block -> channel-rate start + k*block
-        return (out, [start + s * p_up // q_dn for _, s, _ in acc], n_real,
-                (buf, valid))
+        rows = [(start + s * p_up // q_dn, None) for _, s, _ in acc]
+        return step(buf, valid, gain), rows, (buf, valid)
 
+    keep = _resume_filter(cfg, epoch, start_sample)
     reader = _RawReader(path, dtype, in_skip, geometry)
-    yield from _pump(_raw_windows(reader, batch, max_blocks, pinned), batch,
-                     depth, dispatch,
-                     _make_fused_drain(cfg, epoch, stats, on_messages,
-                                       start_sample))
+    for (packed, gains), rows, _bufs in _pump(
+            _raw_windows(reader, batch, max_blocks, pinned), batch, depth,
+            dispatch):
+        for (s, _), msgs in zip(rows, list(_drain(packed, rows, cfg, epoch,
+                                                  stats, gains))):
+            msgs = keep(msgs, s)
+            if on_messages:
+                on_messages(msgs)
+            yield msgs
 
 
 def run_resampled_fused_channels(
@@ -617,24 +594,22 @@ def run_resampled_fused_channels(
         return
     gain = None if scale is None else np.float32(scale)
     step = _raw_step(cfg, p_up, q_dn, sum(geometry), dev)
-    inflight: deque = deque()
-    fused_drain = _make_fused_drain(cfg, epoch, stats, None, start_sample)
 
-    def drain_one() -> List[Optional[List[str]]]:
-        entry, live = inflight.popleft()
-        msgs = fused_drain(entry)
-        return [msgs[c] if live[c] else None for c in range(C)]
+    def dispatch(acc):
+        ((owner, valid, raw_starts, live),) = acc
+        rows = [(start + s * p_up // q_dn, None) for s in raw_starts]
+        return step(owner, valid, gain), rows, live, (owner, valid)
 
+    keep = _resume_filter(cfg, epoch, start_sample)
     steps = _channel_windows([_RawReader(p, dtype, in_skip, geometry)
                               for p in paths], max_blocks, pinned)
     try:
-        for owner, valid, raw_starts, live in steps:
-            starts = [start + s * p_up // q_dn for s in raw_starts]
-            out = step(owner, valid, gain)
-            inflight.append(((out, starts, C, (owner, valid)), live))
-            if len(inflight) > depth:
-                yield drain_one()
+        # an ended channel's zero window is decoded (BlockStats counts it,
+        # as the reference's runner does) and yields None
+        for (packed, gains), rows, live, _bufs in _pump(steps, 1, depth,
+                                                         dispatch):
+            msgs = _drain(packed, rows, cfg, epoch, stats, gains)
+            yield [keep(m, s) if on else None
+                   for (s, _), m, on in zip(rows, msgs, live)]
     finally:
         steps.close()
-    while inflight:
-        yield drain_one()

@@ -257,53 +257,59 @@ class IQStream:
 
     # --- consumer -----------------------------------------------------------
 
+    def _frame(self, stop, call, *args) -> bool:
+        """Make the framing call `call(handle, *args)`, under the lock,
+        until it frames a block: True once it has (rc 1); False at the end
+        of stream (rc -1), on a closed handle or once `stop` is set.
+        Between two calls that find no block it waits in
+        `_wait_for_block`. rc -2 comes only from the planar calls, whose
+        third argument is the row length."""
+        while not (stop is not None and stop.is_set()):
+            with self._lock:
+                if not self._h:
+                    return False
+                rc = call(self._h, *args)
+            if rc == 1:
+                return True
+            if rc == -1:
+                return False
+            if rc == -2:
+                raise ValueError(
+                    f"planar row too short: {args[2]} < {self.total}")
+            self._wait_for_block(stop)
+        return False
+
     def next_block(self, out: Optional[np.ndarray] = None, stop=None
                    ) -> Optional[Tuple[np.ndarray, int]]:
         """Next framed block as float32 (total, 2), in `out` or a buffer of
-        its own, or None at end of stream. Waits (with a short sleep loop)
+        its own, or None at end of stream. Waits (`_wait_for_block`)
         until data is available; a set `stop` threading.Event ends the
         wait early (returns None), so a consumer waiting on a quiet live
         source can be torn down."""
-        import time as _t
         if out is None:
             out = np.empty((self.total, 2), np.float32)
         self._check_out(out, np.float32)
         start = ctypes.c_int64(0)
-        while not (stop is not None and stop.is_set()):
-            with self._lock:
-                if not self._h:
-                    return None
-                rc = self._lib.iq_stream_next_block(
-                    self._h, out.ctypes.data_as(ctypes.c_void_p),
-                    ctypes.byref(start))
-            if rc == 1:
-                return out, int(start.value)
-            if rc == -1:
-                return None
-            _t.sleep(0.001)
+        if not self._frame(stop, self._lib.iq_stream_next_block,
+                           out.ctypes.data_as(ctypes.c_void_p),
+                           ctypes.byref(start)):
+            return None
+        return out, int(start.value)
 
     def next_block_i8(self, scale: float = 127.0,
                       out: Optional[np.ndarray] = None, stop=None
                       ) -> Optional[Tuple[np.ndarray, int]]:
         """Next framed block quantized to int8 (total, 2) with the fixed
         gain int8 = round(f32 * scale), or None at end of stream."""
-        import time as _t
         if out is None:
             out = np.empty((self.total, 2), np.int8)
         self._check_out(out, np.int8)
         start = ctypes.c_int64(0)
-        while not (stop is not None and stop.is_set()):
-            with self._lock:
-                if not self._h:
-                    return None
-                rc = self._lib.iq_stream_next_block_i8(
-                    self._h, out.ctypes.data_as(ctypes.c_void_p),
-                    ctypes.byref(start), float(scale))
-            if rc == 1:
-                return out, int(start.value)
-            if rc == -1:
-                return None
-            _t.sleep(0.001)
+        if not self._frame(stop, self._lib.iq_stream_next_block_i8,
+                           out.ctypes.data_as(ctypes.c_void_p),
+                           ctypes.byref(start), float(scale)):
+            return None
+        return out, int(start.value)
 
     def blocks(self, i8: bool = False, scale: float = 127.0):
         """Generator over all blocks until end of stream: f32, or int8 with
@@ -323,22 +329,12 @@ class IQStream:
         None at end of stream. Blocks until data is available."""
         self._check_planar_out(out_i, out_q)
         start = ctypes.c_int64(0)
-        while not (stop is not None and stop.is_set()):
-            with self._lock:
-                if not self._h:
-                    return None
-                rc = self._lib.iq_stream_next_block_planar_i8(
-                    self._h, out_i.ctypes.data_as(ctypes.c_void_p),
-                    out_q.ctypes.data_as(ctypes.c_void_p), out_i.size,
-                    ctypes.byref(start), float(scale))
-            if rc == 1:
-                return int(start.value)
-            if rc == -1:
-                return None
-            if rc == -2:
-                raise ValueError(
-                    f"planar row too short: {out_i.size} < {self.total}")
-            self._wait_for_block(stop)
+        if not self._frame(stop, self._lib.iq_stream_next_block_planar_i8,
+                           out_i.ctypes.data_as(ctypes.c_void_p),
+                           out_q.ctypes.data_as(ctypes.c_void_p), out_i.size,
+                           ctypes.byref(start), float(scale)):
+            return None
+        return int(start.value)
 
     def next_block_planar_agc(self, out_i: np.ndarray, out_q: np.ndarray,
                               target: float = 120.0, stop=None
@@ -349,22 +345,13 @@ class IQStream:
         self._check_planar_out(out_i, out_q)
         start = ctypes.c_int64(0)
         gain = ctypes.c_float(1.0)
-        while not (stop is not None and stop.is_set()):
-            with self._lock:
-                if not self._h:
-                    return None
-                rc = self._lib.iq_stream_next_block_planar_agc(
-                    self._h, out_i.ctypes.data_as(ctypes.c_void_p),
-                    out_q.ctypes.data_as(ctypes.c_void_p), out_i.size,
-                    ctypes.byref(start), float(target), ctypes.byref(gain))
-            if rc == 1:
-                return int(start.value), float(gain.value)
-            if rc == -1:
-                return None
-            if rc == -2:
-                raise ValueError(
-                    f"planar row too short: {out_i.size} < {self.total}")
-            self._wait_for_block(stop)
+        if not self._frame(stop, self._lib.iq_stream_next_block_planar_agc,
+                           out_i.ctypes.data_as(ctypes.c_void_p),
+                           out_q.ctypes.data_as(ctypes.c_void_p), out_i.size,
+                           ctypes.byref(start), float(target),
+                           ctypes.byref(gain)):
+            return None
+        return int(start.value), float(gain.value)
 
     def _wait_for_block(self, stop) -> None:
         """After a framing call found no block: wait, in one span

@@ -1,11 +1,13 @@
-"""The runners' spans (`utils.profiling.span`) on the CPU: each served
-runner (`run_native_pipelined`, `run_native_channels`, `run_resampled_fused`)
-on a small capture under `profiling.profiler()`, read back from its Chrome
-trace. The spans are named `airmodes.<stage>`:
+"""The runners' spans (`utils.profiling.span`) on the CPU: each runner
+(`run_native_pipelined`, `run_native_channels`, `run_resampled_fused`,
+`run_resampled_fused_channels`, `run_channels`) on a small capture under
+`profiling.profiler()`, read back from its Chrome trace. The spans are
+named `airmodes.<stage>`:
 
 - `frame` per block framed, on the thread that frames (the feeder of one
-  channel, the pool threads of several, the caller's for the fused runner),
-  with `source_wait` inside it while the source has no block ready;
+  channel, the pool threads of several, the caller's for the runners of
+  `io/stream.py`), with `source_wait` inside it while the source has no
+  block ready (every framing call of `native.IQStream`);
 - `dispatch` per step; `result_wait` per take from the dispatch queue;
 - `fetch` per step's `.cpu()`; `decode` per block's table.
 
@@ -25,10 +27,11 @@ import pytest
 import torch
 
 from airmodes_torch.config import DspConfig
-from airmodes_torch.io import native_stream
+from airmodes_torch.io import native_stream, sources
 from airmodes_torch.io.native_stream import (run_native_channels,
                                              run_native_pipelined)
-from airmodes_torch.io.stream import run_resampled_fused
+from airmodes_torch.io.stream import (run_channels, run_resampled_fused,
+                                      run_resampled_fused_channels)
 from airmodes_torch.resample.fused import raw_geometry
 from airmodes_torch.testing import encoder
 from airmodes_torch.utils import profiling
@@ -77,6 +80,29 @@ def c64(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("spans") / "cap.c64")
     iq.astype(np.complex64).tofile(path)
     return path
+
+
+@pytest.fixture(scope="module")
+def c64_short(c64, tmp_path_factory):
+    """The first raw window's samples of `c64`: a channel that ends
+    before the other."""
+    _, raw_block, _, _ = raw_geometry(FUSED_CFG, 2, 3)
+    path = str(tmp_path_factory.mktemp("spans") / "short.c64")
+    np.fromfile(c64, np.complex64)[:raw_block].tofile(path)
+    return path
+
+
+def _framed_channels():
+    """Two channels of framed blocks, for `run_channels`: BLOCKS blocks,
+    then 2 (the second ends first)."""
+    out = []
+    for n, seed in ((BLOCKS, 41), (2, 42)):
+        frames = encoder.random_df17_frames(3 * n, seed=seed)
+        iq, _ = encoder.make_capture(frames, rate=2e6, snr_db=20.0,
+                                     spacing=4000, seed=seed,
+                                     total_samples=n * CFG.block_size)
+        out.append(sources.frame_blocks(iq, CFG))
+    return out
 
 
 def _consume(gen):
@@ -205,6 +231,38 @@ def test_a_wait_for_the_source_ends_with_a_block_the_end_or_stop(native_ok):
         quiet.close()
 
 
+@pytest.mark.parametrize("call", ["next_block", "next_block_i8",
+                                  "next_block_planar_i8",
+                                  "next_block_planar_agc"])
+def test_every_framing_call_waits_inside_source_wait(native_ok, tmp_path,
+                                                     call):
+    """Each framing call of `IQStream`, made before a whole block is
+    ready, returns the block once it is; the time it waited for it lies
+    in one `airmodes.source_wait` span inside the call."""
+    from airmodes_torch.native import IQStream
+    s = IQStream(CFG)
+    args = ((np.zeros(s.total, np.int8), np.zeros(s.total, np.int8))
+            if "planar" in call else ())
+    timer = threading.Timer(0.05, lambda: s.push(np.zeros(1, np.complex64)))
+
+    def run():
+        timer.start()           # after the profiler's own (slow) start
+        with torch.profiler.record_function(CONSUMER):
+            return getattr(s, call)(*args)
+    try:
+        s.push(np.zeros(s.block + s.right - 1, np.complex64))
+        got, ranges = _traced(run, tmp_path)
+        timer.join(timeout=5)
+        assert not timer.is_alive()
+    finally:
+        s.close()
+    assert got is not None
+    ((_, _, a, b),) = _spans(ranges, CONSUMER)
+    ((_, _, wa, wb),) = _spans(ranges, "airmodes.source_wait")
+    assert a <= wa and wb <= b
+    assert wb - wa >= 40_000                  # the trace's microseconds
+
+
 @pytest.mark.parametrize("to_end", [False, True])
 def test_pipelined_runner_spans(uc8, tmp_path, monkeypatch, to_end):
     """One channel: frame and source_wait on the feeder thread, dispatch on
@@ -269,21 +327,33 @@ def test_channel_runner_spans(uc8, tmp_path, monkeypatch, to_end):
     _check_nesting_and_yields(ranges)
 
 
-def test_fused_runner_spans(c64, tmp_path):
-    """The fused runner frames on the caller's thread: frame per raw window
-    taken (and one for the take that finds the end), source_wait around
-    each read of the capture inside it, dispatch and fetch per batch,
-    decode per block."""
-    out, ranges = _traced(lambda: _consume(run_resampled_fused(
-        c64, FUSED_CFG, dtype="complex64", rate_in=6e6, batch=2,
-        device="cpu")), tmp_path)
-    blocks = len(out)
+@pytest.mark.parametrize("channels", [1, 2])
+def test_fused_runner_spans(c64, c64_short, tmp_path, channels):
+    """The fused runners frame on the caller's thread: frame per raw window
+    taken (one channel) or per step's windows (two, the second ending
+    first), and one for the take that finds the end; source_wait around
+    each read of the capture inside it, dispatch and fetch per step,
+    decode per block, an ended channel's zero window included (it yields
+    None)."""
+    if channels == 1:
+        out, ranges = _traced(lambda: _consume(run_resampled_fused(
+            c64, FUSED_CFG, dtype="complex64", rate_in=6e6, batch=2,
+            device="cpu")), tmp_path)
+        blocks = len(out)
+        steps = math.ceil(blocks / 2)
+    else:
+        out, ranges = _traced(lambda: _consume(run_resampled_fused_channels(
+            [c64, c64_short], FUSED_CFG, dtype="complex64", rate_in=6e6,
+            device="cpu")), tmp_path)
+        assert all(m is not None for m, _ in out)
+        assert out[-1][1] is None                  # the short one ended
+        steps = len(out)
+        blocks = 2 * steps
     assert blocks >= 3
     n = Counter(r[0] for r in ranges if r[0].startswith("airmodes."))
-    assert n["airmodes.frame"] == blocks + 1
+    assert n["airmodes.frame"] == (blocks if channels == 1 else steps) + 1
     assert n["airmodes.decode"] == blocks
-    assert n["airmodes.dispatch"] == n["airmodes.fetch"] \
-        == math.ceil(blocks / 2)
+    assert n["airmodes.dispatch"] == n["airmodes.fetch"] == steps
     assert n["airmodes.source_wait"] >= 2      # the reads and the end's
     assert "airmodes.result_wait" not in n     # no dispatch queue here
     consumer = _consumer_tid(ranges)
@@ -292,10 +362,36 @@ def test_fused_runner_spans(c64, tmp_path):
     _check_nesting_and_yields(ranges)
 
 
-def test_outputs_unchanged_by_the_spans(uc8, c64, tmp_path):
+def test_framed_channel_runner_spans(tmp_path):
+    """run_channels on framed blocks, on the caller's thread: frame per
+    step's blocks taken and one for the take that finds the end, dispatch
+    and fetch per step, decode per live channel's block (an ended channel
+    is not decoded and yields None)."""
+    out, ranges = _traced(lambda: _consume(run_channels(
+        _framed_channels(), CFG, quantize_i8=True, device="cpu")), tmp_path)
+    assert len(out) == BLOCKS
+    assert [m is None for _, m in out] == [False] * 2 + [True] * 2
+    n = Counter(r[0] for r in ranges if r[0].startswith("airmodes."))
+    assert n["airmodes.frame"] == BLOCKS + 1
+    assert n["airmodes.dispatch"] == n["airmodes.fetch"] == BLOCKS
+    assert n["airmodes.decode"] == BLOCKS + 2
+    assert "airmodes.source_wait" not in n     # the blocks are in memory
+    assert "airmodes.result_wait" not in n
+    consumer = _consumer_tid(ranges)
+    for name in n:
+        assert _tids(ranges, name) == {consumer}, name
+    _check_nesting_and_yields(ranges)
+
+
+def test_outputs_unchanged_by_the_spans(uc8, c64, c64_short, tmp_path):
     """Each runner yields the same messages with the profiler recording
     its spans as without one."""
     runs = [
+        lambda: list(run_channels(_framed_channels(), CFG, quantize_i8=True,
+                                  device="cpu")),
+        lambda: list(run_resampled_fused_channels(
+            [c64, c64_short], FUSED_CFG, dtype="complex64", rate_in=6e6,
+            device="cpu")),
         lambda: list(run_native_pipelined(CFG, path=uc8, fmt="uc8",
                                           batch=2, device="cpu")),
         lambda: list(run_native_channels([uc8, uc8], CFG, fmt="uc8",
