@@ -144,3 +144,6 @@ def table_to_messages(
     return msgs
 
 
+# the rule under a second name: `io.stream._drain` formats rows natively
+# only while `table_to_messages` is this function
+RULE = table_to_messages

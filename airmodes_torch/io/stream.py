@@ -45,12 +45,14 @@ inside it around each read of the fused runners' captures),
 
 from __future__ import annotations
 
+import threading
 from collections import deque
 from typing import Callable, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import native
 from ..config import DspConfig
 from ..dsp import host as host_mod
 from ..resample.fused import (raw_geometry, raw_to_planar,
@@ -154,13 +156,58 @@ def _dev_layout(block, quantize_i8: bool):
     return x, fs
 
 
+# table rows turned into wire lines, by the native pass
+# (`native.WireLines`) and by the Python rule (`dsp.host.table_to_messages`
+# on `unpack_table`), which takes the rows the pass does not
+WIRE_ROWS = {"native": 0, "python": 0}
+
+# each thread's passes by table size, built on first use and kept (None:
+# the library does not load)
+_PASSES = threading.local()
+
+
+def _wire_lines(k: int) -> Optional[native.WireLines]:
+    """This thread's native pass for tables of k slots, or None where every
+    row takes the Python rule: the library does not load, or a caller has
+    put another function in the rule's place (`dsp.host.table_to_messages`:
+    a fault injected to check the checks, a recorder), which then sees every
+    row. That identity check stays until the benchmark's fault check
+    patches the native pass (ROADMAP.md, queue 2, item 8)."""
+    if host_mod.table_to_messages is not host_mod.RULE:
+        return None
+    passes = _PASSES.__dict__
+    if k not in passes:
+        try:
+            passes[k] = native.WireLines(k)
+        except native.NativeUnavailable:
+            passes[k] = None
+    return passes[k]
+
+
+def _messages(wire, row, start, rate, epoch, fs, stats) -> List[str]:
+    """One packed row's wire messages: the native pass where it takes the
+    row, else the Python rule; both add the same counts to `stats`."""
+    msgs = None if wire is None else wire(row, start, rate, epoch, fs)
+    if msgs is None:
+        WIRE_ROWS["python"] += 1
+        return host_mod.table_to_messages(unpack_table(row), start, rate,
+                                          epoch=epoch, full_scale=fs,
+                                          stats=stats)
+    WIRE_ROWS["native"] += 1
+    if stats is not None:
+        for name, n in zip(native.WIRE_COUNTS, wire.counts.tolist()):
+            setattr(stats, name, getattr(stats, name) + n)
+    return msgs
+
+
 def _drain(packed, rows, cfg, epoch, stats, gains=None):
     """One step's packed (n, K+1, 9) table on the device -> one entry per
     row of `rows`, yielded in order: the row's wire messages, decoded with
     rows[j] = (start, full_scale), or None where rows[j] is None (a row
     not decoded). Table rows past len(rows) (padding) are not read. With
     the fused step's device-AGC `gains`, fetched in the same span, row j's
-    full scale is gains[j] / 127 in place of its own. Spans: one
+    full scale is gains[j] / 127 in place of its own. A row's messages come
+    from one native pass over its packed table (`_messages`). Spans: one
     `airmodes.fetch` around the step's `.cpu()`, one `airmodes.decode` per
     row decoded, each closed before its entry is yielded. A runner that
     yields a step's rows together takes the list; `run_native_pipelined`
@@ -168,16 +215,16 @@ def _drain(packed, rows, cfg, epoch, stats, gains=None):
     with span("airmodes.fetch"):
         arr = packed.cpu().numpy()
         gs = None if gains is None else gains.cpu().numpy()
+    wire = _wire_lines(arr.shape[1] - 1)
     for j, row in enumerate(rows):
         if row is None:
             yield None
             continue
         start, fs = row
         with span("airmodes.decode"):
-            msgs = host_mod.table_to_messages(
-                unpack_table(arr[j]), start, cfg.channel_rate, epoch=epoch,
-                stats=stats,
-                full_scale=fs if gs is None else float(gs[j]) / 127.0)
+            msgs = _messages(
+                wire, arr[j], start, cfg.channel_rate, epoch,
+                fs if gs is None else float(gs[j]) / 127.0, stats)
         yield msgs
 
 

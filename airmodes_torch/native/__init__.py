@@ -1,16 +1,20 @@
-"""ctypes binding for the native IQ streaming runtime (iqstream.cc).
+"""ctypes binding for the native host runtime: the IQ streaming runtime
+(iqstream.cc) and the wire-line formatter (wire.cc).
 
 A copy of `airmodes.native` (the C++ framer: a file or UDP pump thread,
 ring buffer, overlap-save framing as f32 blocks, or int8 quantization with
 per-block AGC or a fixed gain and the planar I/Q split) and of its loader,
 which imports only the standard library, numpy and the port's profiler
-span (`utils.profiling.span`, around a wait for the source). Builds the
-shared library on first use with g++ (cached next to the source).
-Python<->C boundary is a C ABI — no pybind11 dependency."""
+span (`utils.profiling.span`, around a wait for the source). The port adds
+`WireLines`, one native pass from a block's packed table to its wire
+lines. Builds the one shared library from both sources on first use with
+g++ (cached next to them). Python<->C boundary is a C ABI — no pybind11
+dependency."""
 
 from __future__ import annotations
 
 import ctypes
+import numbers
 import os
 import subprocess
 import threading
@@ -21,10 +25,11 @@ import numpy as np
 from ..utils.profiling import span
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_HERE, "iqstream.cc")
+_SRCS = [os.path.join(_HERE, n) for n in ("iqstream.cc", "wire.cc")]
 _LIB = os.path.join(_HERE, "libiqstream.so")
 
 _lib = None
+_lib_error: Optional["NativeUnavailable"] = None
 _lib_lock = threading.Lock()
 
 
@@ -37,7 +42,7 @@ def _build() -> str:
     # racing the first build must never dlopen a half-written .so
     tmp = f"{_LIB}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-           "-pthread", _SRC, "-o", tmp]
+           "-pthread", *_SRCS, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True)
         os.replace(tmp, _LIB)
@@ -51,23 +56,32 @@ def _build() -> str:
 
 
 def load() -> ctypes.CDLL:
-    """Load (building if needed) the native library."""
-    global _lib
+    """Load (building if needed) the native library. A failure is kept:
+    later calls raise it again without another build."""
+    global _lib, _lib_error
     with _lib_lock:
         if _lib is not None:
             return _lib
+        if _lib_error is not None:
+            raise _lib_error
         # a prebuilt .so with no source alongside (installed package) is
-        # fine — only rebuild when the source exists and is newer
-        have_src = os.path.exists(_SRC)
-        if not os.path.exists(_LIB) or (
-                have_src and os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
-            if not have_src:
-                raise NativeUnavailable(
-                    f"no prebuilt {_LIB} and no source {_SRC} to build from")
+        # fine — only rebuild when a source exists and is newer
+        srcs = [p for p in _SRCS if os.path.exists(p)]
+        if not os.path.exists(_LIB) or any(
+                os.path.getmtime(_LIB) < os.path.getmtime(p) for p in srcs):
             try:
-                _build()
-            except (OSError, subprocess.CalledProcessError) as e:
-                raise NativeUnavailable(f"cannot build iqstream: {e}") from e
+                if len(srcs) < len(_SRCS):
+                    raise NativeUnavailable(
+                        f"no prebuilt {_LIB} and not every source of "
+                        f"{_SRCS} to build from")
+                try:
+                    _build()
+                except (OSError, subprocess.CalledProcessError) as e:
+                    raise NativeUnavailable(
+                        f"cannot build iqstream: {e}") from e
+            except NativeUnavailable as e:
+                _lib_error = e
+                raise
         lib = ctypes.CDLL(_LIB)
         u64, i64, f32 = ctypes.c_uint64, ctypes.c_int64, ctypes.c_float
         vp, cp, ip = ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int
@@ -106,6 +120,15 @@ def load() -> ctypes.CDLL:
         lib.iq_stream_available.argtypes = [vp]
         lib.iq_stream_ready.restype = ctypes.c_int
         lib.iq_stream_ready.argtypes = [vp]
+        # called holding the GIL (PyDLL): the pass takes tens of
+        # microseconds, and a thread that lets go of the interpreter for it
+        # waits up to the switch interval (5 ms) to win it back from the
+        # framing threads
+        lib.wire_lines = ctypes.PyDLL(_LIB).wire_lines
+        lib.wire_lines.restype = i64
+        lib.wire_lines.argtypes = [vp, i64, i64, ctypes.c_double,
+                                   ctypes.c_double, i64, ctypes.c_double,
+                                   vp, i64, vp]
         _lib = lib
         return lib
 
@@ -127,6 +150,69 @@ def quantize_planar_i8(iq: np.ndarray, gain: float):
         out_i.ctypes.data_as(ctypes.c_void_p),
         out_q.ctypes.data_as(ctypes.c_void_p), arr.size, float(gain))
     return out_i, out_q
+
+
+# BlockStats fields, in the order `wire_lines` writes their counts
+WIRE_COUNTS = ("preambles", "overflow", "crc_ok", "corrected", "emitted",
+               "crc_fail")
+_LINE_BYTES = 160        # room a slot's line has in the output buffer
+_I64 = 1 << 63
+
+
+class WireLines:
+    """One native pass from a block's packed (K+1, 9) int32 table to its
+    wire lines: `self(row, start, rate, epoch, full_scale)` is byte for
+    byte `dsp.host.table_to_messages(dsp.pipeline.unpack_table(row),
+    start, rate, epoch, full_scale)`, and leaves the BlockStats counts
+    that rule adds in `counts` (fields `WIRE_COUNTS`). It returns None for
+    a row the pass does not take, which the caller hands to that rule: a
+    frame of neither 56 nor 112 bits, a number past what the pass holds
+    exactly (sample counts past 2^53, nanoseconds past int64, a rate of
+    2^62 or more, a time of 1.8e10 s or more), a rate, epoch or full scale
+    of another type than Python's numbers (or numpy's float64), or a value
+    the rule raises on. A start of numpy's integer types is taken as
+    `int(start)`: the rule, handed one, would scale it in int64. One
+    object serves one thread; its buffer holds the last row's lines until
+    the next call.
+    Raises NativeUnavailable where the library cannot load."""
+
+    def __init__(self, k: int):
+        self._lib = load()
+        self.k = k
+        self._out = ctypes.create_string_buffer(k * _LINE_BYTES)
+        self.counts = np.zeros(len(WIRE_COUNTS), np.int64)
+
+    def __call__(self, row: np.ndarray, start, rate, epoch,
+                 full_scale) -> Optional[list]:
+        if (row.dtype != np.int32 or row.shape != (self.k + 1, 9)
+                or not row.flags.c_contiguous):
+            raise ValueError(
+                f"row must be C-contiguous int32 ({self.k + 1}, 9); got "
+                f"{row.dtype} {row.shape}")
+        if not (isinstance(start, numbers.Integral)
+                and isinstance(rate, (int, float))
+                and isinstance(epoch, (int, float))
+                and isinstance(full_scale, (int, float))):
+            return None
+        start = int(start)
+        if not -(1 << 62) < start < (1 << 62):
+            return None
+        try:
+            # the rule's own expressions on the caller's objects
+            epoch_ns = int(round(epoch * 1e9))
+            fs2 = float(full_scale ** 2)
+            frate, fepoch = float(rate), float(epoch)
+        except (ValueError, OverflowError):
+            return None
+        if frate != rate or not -_I64 <= epoch_ns < _I64:
+            return None
+        n = self._lib.wire_lines(
+            row.ctypes.data, self.k, start, frate, fepoch, epoch_ns, fs2,
+            self._out, len(self._out), self.counts.ctypes.data)
+        if n < 0:
+            return None
+        return ctypes.string_at(self._out, n).decode("ascii").split("\n") \
+            if n else []
 
 
 class IQStream:

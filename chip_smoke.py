@@ -178,7 +178,16 @@ process per source, all at once), then:
      then framed with the AGC; prints ms a block of the pump and of the
      framing, and holds every row, start and gain bit for bit against
      `quantize_planar_i8_np` over the same frames;
- 23. prints one JSON line of per-kernel numbers, the card line, and last
+ 23. times a block's table turned into wire lines, on the host: the Python
+     rule (`dsp/host.table_to_messages` on `unpack_table`) against the
+     native pass (`native.WireLines`, `native/wire.cc`) on 16 packed
+     tables at replay 16ch's shape (52 frames and 20 CRC failures in 128
+     slots), lines and BlockStats equal; the pass called holding the
+     GIL (as bound) against letting go of it (a plain ctypes call) beside
+     0, 1 and 3 threads that run Python; then a short
+     `run_native_channels` run on the card, every row of which the pass
+     must have formatted (`io/stream.WIRE_ROWS`);
+ 24. prints one JSON line of per-kernel numbers, the card line, and last
      {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero. Without a CUDA card, or without the
@@ -4066,6 +4075,173 @@ def phase_framer(smi, n_blocks=FRAMER_BLOCKS, cases=None):
     return out
 
 
+# --- phase 23: a block's table turned into wire lines -----------------------
+
+DECODE_ROWS = 16             # the tables of one replay 16ch step
+DECODE_REPS = 25
+DECODE_BUSY = (0, 1, 3)      # threads running Python beside the timed pass
+
+
+def _busy_python(n):
+    """n threads that run Python bytecode until the returned event is set,
+    as the framing pool's glue and the sink do beside the consumer."""
+    import threading
+    stop = threading.Event()
+
+    def spin():
+        while not stop.is_set():
+            sum(range(200))
+    for _ in range(n):
+        threading.Thread(target=spin, daemon=True).start()
+    return stop
+
+
+def _gil_held_vs_released(wire, tables, args, rate, smi):
+    """The native pass per block called holding the GIL (`ctypes.PyDLL`,
+    as `native.load` binds it) and letting go of it (`ctypes.CDLL`, the
+    same function), in turns, beside DECODE_BUSY threads of Python: the
+    median and the mean of DECODE_REPS calls a table."""
+    import ctypes
+    import types
+    import numpy as np
+    from airmodes_torch import native
+    held = native.load().wire_lines
+    released = ctypes.CDLL(native._LIB).wire_lines
+    released.restype, released.argtypes = held.restype, held.argtypes
+    wire_rel = native.WireLines(wire.k)
+    wire_rel._lib = types.SimpleNamespace(wire_lines=released)
+    for j in range(len(tables)):
+        start, fs = args[j]
+        if wire_rel(tables[j], start, rate, 0.0, fs) != wire(
+                tables[j], start, rate, 0.0, fs):
+            raise AssertionError(f"decode alone: table {j}: released != "
+                                 f"held")
+    for n in DECODE_BUSY:
+        stop = _busy_python(n)
+        times = {wire: [], wire_rel: []}
+        try:
+            for _ in range(DECODE_REPS):
+                for j in range(len(tables)):
+                    start, fs = args[j]
+                    for w in (wire, wire_rel) if j % 2 else (wire_rel, wire):
+                        t0 = time.perf_counter()
+                        w(tables[j], start, rate, 0.0, fs)
+                        times[w].append(time.perf_counter() - t0)
+        finally:
+            stop.set()
+        h, r = (np.array(times[w]) * 1e3 for w in (wire, wire_rel))
+        print(f"decode alone: beside {n} busy Python thread(s), the native "
+              f"pass holding the GIL {np.median(h):.4f} ms a block (mean "
+              f"{h.mean():.4f}), letting go of it {np.median(r):.4f} ms "
+              f"(mean {r.mean():.4f}); {len(h)} calls each, in turns "
+              f"[{smi}]", flush=True)
+
+
+def _replay_tables(cfg, n, rng):
+    """n packed (K+1, 9) tables at replay 16ch's shape: 52 frames (DF17
+    long ones, DF11 short ones) and 20 CRC failures in the first slots of
+    cfg.max_detections, at indices across the block and levels from -40 to
+    0 dBFS of the row's full scale, the rest empty as the card leaves
+    them."""
+    import numpy as np
+    k = cfg.max_detections
+    rows = np.zeros((n, k + 1, 9), np.int32)
+    rows[:, :, 0] = -1
+    rows[:, :, 1] = 0xFF
+    for r in rows:
+        m = 72
+        long = rng.random(m) < 0.6
+        status = np.where(np.arange(m) < 20, 4, rng.choice(
+            [0, 0, 0, 0, 1, 2, 3], m))
+        r[:m, 0] = rng.integers(0, cfg.block_size, m)
+        r[:m, 1] = (np.where(long, 17, 11) + (np.where(long, 112, 56) << 8)
+                    + (status << 16))
+        r[:m, 2] = rng.integers(0, 1 << 24, m)
+        r[:m, 3] = (10.0 ** rng.uniform(-4, 0, m)).astype(np.float32).view(
+            np.int32)
+        r[:m, 5:9] = rng.integers(0, 1 << 28, (m, 4))
+        r[k, :2] = (m + 30, 0)
+    return rows
+
+
+def phase_decode(dev, tmp, smi):
+    """A block's table turned into wire lines on the host, per block: the
+    Python rule against the native pass on 16 tables at replay 16ch's
+    shape, each side timed DECODE_REPS times a table in turns (the median
+    of the per-table times); lines and counts equal; then the pass holding
+    the GIL against letting go of it (`_gil_held_vs_released`). Then
+    `run_native_channels` on the card over two uc8 captures of two blocks:
+    the native count (`io/stream.WIRE_ROWS`) must rise by every row
+    decoded, the Python rule's not at all. Returns (rule ms, native ms) a
+    block."""
+    import numpy as np
+    from airmodes_torch import native
+    from airmodes_torch.config import DspConfig
+    from airmodes_torch.dsp import host
+    from airmodes_torch.dsp.pipeline import unpack_table
+    from airmodes_torch.io import stream
+    from airmodes_torch.io.native_stream import run_native_channels
+    cfg = DspConfig()
+    rng = np.random.default_rng(23)
+    tables = _replay_tables(cfg, DECODE_ROWS, rng)
+    gains = rng.uniform(50, 400, DECODE_ROWS).astype(np.float32)
+    args = [((1 << 32) + j * cfg.block_size, float(gains[j]) / 127.0)
+            for j in range(DECODE_ROWS)]
+    wire = native.WireLines(cfg.max_detections)
+
+    def rule(j, stats):
+        start, fs = args[j]
+        return host.table_to_messages(unpack_table(tables[j]), start,
+                                      cfg.channel_rate, full_scale=fs,
+                                      stats=stats)
+
+    def native_pass(j, stats):
+        start, fs = args[j]
+        msgs = wire(tables[j], start, cfg.channel_rate, 0.0, fs)
+        for name, c in zip(native.WIRE_COUNTS, wire.counts.tolist()):
+            setattr(stats, name, getattr(stats, name) + c)
+        return msgs
+
+    n_lines = 0
+    for j in range(DECODE_ROWS):
+        want_stats, got_stats = host.BlockStats(), host.BlockStats()
+        want, got = rule(j, want_stats), native_pass(j, got_stats)
+        if got != want or got_stats != want_stats:
+            raise AssertionError(f"decode alone: table {j}: the native "
+                                 f"pass != the Python rule")
+        n_lines += len(got)
+    times = {rule: [], native_pass: []}
+    for _ in range(DECODE_REPS):
+        for j in range(DECODE_ROWS):
+            for f in (rule, native_pass) if j % 2 else (native_pass, rule):
+                t0 = time.perf_counter()
+                f(j, host.BlockStats())
+                times[f].append(time.perf_counter() - t0)
+    rule_ms = float(np.median(times[rule])) * 1e3
+    native_ms = float(np.median(times[native_pass])) * 1e3
+    print(f"decode alone: {DECODE_ROWS} tables of {cfg.max_detections} "
+          f"slots, {n_lines / DECODE_ROWS:.1f} lines a table: Python rule "
+          f"{rule_ms:.4f} ms a block, native pass {native_ms:.4f} ms "
+          f"({rule_ms / native_ms:.1f}x; medians of {DECODE_REPS} a table, "
+          f"in turns); lines and BlockStats equal [{smi}]", flush=True)
+    _gil_held_vs_released(wire, tables, args, cfg.channel_rate, smi)
+
+    paths = []
+    for c in range(2):
+        paths.append(os.path.join(tmp, f"decode{c}.uc8"))
+        write_capture(cfg, paths[-1], 2, seed=40 + c)
+    before = dict(stream.WIRE_ROWS)
+    steps = list(run_native_channels(paths, cfg, fmt="uc8", device=dev))
+    used = {k: stream.WIRE_ROWS[k] - before[k] for k in before}
+    rows = sum(m is not None for st in steps for m in st)
+    if used != {"native": rows, "python": 0} or rows != 4:
+        raise AssertionError(f"decode alone: run_native_channels decoded "
+                             f"{rows} rows; wire lines by path {used}")
+    print(f"decode alone: run_native_channels over 2 channels of 2 blocks: "
+          f"wire lines by path {used} (io/stream.WIRE_ROWS)", flush=True)
+    return rule_ms, native_ms
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4227,7 +4403,8 @@ def main() -> int:
         phase_bench(dev, smi)
         phase_graphs(cfg, dev, tmp, smi)
         graft_launches = phase_graft_entry(dev, smi)
-    phase_framer(smi)
+        phase_framer(smi)
+        phase_decode(dev, tmp, smi)
 
     half = cfg.nms_chips * cfg.sps
     b1_ms, b1_plain, b1_bytes, b1_samples = b1_t
